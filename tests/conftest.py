@@ -14,3 +14,7 @@ def pytest_configure(config):
         "markers",
         "mesh: sharded-path tests (subprocesses force an 8-device host "
         "platform; tools/ci.sh runs these as a second, sharded pass)")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the PyTorch port's hand-written kernels); "
+        "skips without one")
