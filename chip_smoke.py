@@ -7,9 +7,10 @@ Phases (each prints its lines; any failed check raises, so the exit code
 is not 0):
 
 1. device and build: the card's name and power limit from nvidia-smi, then
-   the TAA-update kernels compiled by nvcc from ``src/repro_torch/kernels/
-   csrc`` (build seconds and the compiler's register report);
-2. each kernel against its plain PyTorch version on the card, at the main
+   every kernel library compiled from ``src/repro_torch/kernels/csrc`` (one
+   nvcc per source, all started together; build seconds and the compiler's
+   register report);
+2. each TAA-update kernel against its plain PyTorch version on the card, at the main
    path's shapes (B=2 lanes, m=3, T=25, D=4096 = 256 tokens x latent 16),
    float32 and bfloat16, a ragged D=4000, every round mode with a nonzero
    guard; then kernel / plain / library times (CUDA events, median of 25
@@ -21,7 +22,15 @@ is not 0):
    points with ParaTAA staged, ParaTAA fused, and sequential DDIM (T=25).
    Checks: every ParaTAA request converged, ParaTAA's x0 within 2e-2
    relative of sequential, staged and fused within 1e-4 relative, and each
-   kernel's launches during its run equal to the device iterations.
+   kernel's launches during its run equal to the device iterations;
+4. the model kernels (flash attention, GQA flash decode with a bf16 and an
+   int8 cache, Mamba2 SSD scan, RG-LRU scan) driven once each through
+   ``repro_torch.kernels.ops`` (``flash_decode`` for int8) at the full
+   widths of DiT-XL, qwen3-0.6b, recurrentgemma-2b and mamba2-1.3b, every
+   launch count set to 0 just before and checked equal to the calls just
+   after; each output against its plain version on the same inputs (the
+   JAX tests' bounds); then kernel / plain / library times beside the
+   least time the card could take.
 
 Then one JSON line of per-kernel numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Without CUDA, or run from a directory
@@ -48,11 +57,20 @@ ADA_SCALE = 0.02
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32, outside the tensor cores
+BF16_TC_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 TOL = {"float32": 3e-5, "bfloat16": 2e-2}
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/taa_update.cu"
+CSRC = "src/repro_torch/kernels/csrc/"
+SOURCES = {name: CSRC + f"{name}.cu" for name in (
+    "flash_attention", "flash_decode", "ssd_scan", "rglru_scan")}
+SOURCES.update({name: CSRC + "taa_update.cu"
+                for name in ("taa_gram", "taa_apply", "taa_round")})
 REPLACES = {"taa_gram": "src/repro/kernels/taa_update.py:68",
             "taa_apply": "src/repro/kernels/taa_update.py:116",
-            "taa_round": "src/repro/kernels/taa_update.py:239"}
+            "taa_round": "src/repro/kernels/taa_update.py:239",
+            "flash_attention": "src/repro/kernels/flash_attention.py:97",
+            "flash_decode": "src/repro/kernels/flash_decode.py:105",
+            "ssd_scan": "src/repro/kernels/ssd_scan.py:87",
+            "rglru_scan": "src/repro/kernels/rglru_scan.py:51"}
 
 
 def check(ok: bool, what: str) -> None:
@@ -377,6 +395,236 @@ def check_main_path(runs):
                                       "taa_round": 0}, "seq launched kernels")
 
 
+# --- phase 4: the model kernels through kernels.ops at model widths ----------
+
+
+def model_cases():
+    """The phase-4 calls, at the full widths of models this repo configures;
+    inputs on the card from a numpy seed, at the JAX tests' magnitudes
+    (tests/test_kernels.py).  Each case: the kernel it launches, the width's
+    source, the entry-point call, its plain version, one PyTorch library
+    call computing the same function (or None), the tolerance and whether
+    the error is absolute or relative, and its bytes and operations."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_decode, ops, ref
+
+    rng = np.random.default_rng(SEED + 4)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def t(*shape, scale=1.0, dtype=f32):
+        a = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+        return torch.from_numpy(a).cuda().to(dtype)
+
+    cases = []
+
+    def attention(label, source, B, H, S, T, D, dtype, causal, window):
+        q, k, v = t(B, H, S, D, dtype=dtype), t(B, H, T, D, dtype=dtype), \
+            t(B, H, T, D, dtype=dtype)
+        qp = torch.arange(S)[:, None] + (T - S)
+        kp = torch.arange(T)[None, :]
+        live = torch.ones(S, T, dtype=torch.bool)
+        if causal:
+            live &= kp <= qp
+        if window:
+            live &= kp > qp - window
+        mask = live.cuda()
+        lib = (lambda: F.scaled_dot_product_attention(q, k, v)) \
+            if not causal and not window else \
+            (lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)) \
+            if not window else \
+            (lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+        e = q.element_size()
+        cases.append(dict(
+            kernel="flash_attention", label=label, source=source,
+            run=lambda: ops.attention(q, k, v, causal=causal, window=window),
+            plain=lambda: ref.attention_ref(q, k, v, causal=causal,
+                                            window=window),
+            library=lib, tol=TOL[str(dtype).split(".")[-1]], rel=False,
+            nbytes=(2 * B * H * S * D + 2 * B * H * T * D) * e,
+            ops=4 * D * B * H * int(live.sum()), matmul_dtype=dtype))
+
+    attention("dit-xl eps batch, non-causal, f32 (B=50 H=16 S=T=256 D=72)",
+              "configs/dit_xl.py", 50, 16, 256, 256, 72, f32, False, 0)
+    attention("qwen3-0.6b causal prefill, bf16 (B=1 H=16 S=T=4096 D=128)",
+              "configs/qwen3_0_6b.py", 1, 16, 4096, 4096, 128, bf16, True, 0)
+    attention("recurrentgemma-2b causal window 2048, bf16 (B=1 H=10 S=T=4096 "
+              "D=256)", "configs/recurrentgemma_2b.py", 1, 10, 4096, 4096,
+              256, bf16, True, 2048)
+
+    def decode(label, source, B, H, KV, T, D, dtype, int8):
+        q = t(B, H, D, dtype=dtype)
+        lengths = torch.from_numpy(rng.integers(1, T + 1, size=B)).cuda()
+        lengths[0] = T
+        valid = torch.arange(T, device="cuda")[None] < lengths[:, None]
+        live = int(lengths.sum())
+        if int8:
+            kq, ks = ref.quantize_kv(t(B, T, KV, D))
+            vq, vs = ref.quantize_kv(t(B, T, KV, D))
+            run = lambda: flash_decode.flash_decode(q, kq, vq, lengths,
+                                                    k_scale=ks, v_scale=vs)
+            plain = lambda: ref.decode_int8_ref(q, kq, vq, lengths, ks, vs)
+            lib, tol = None, 2e-5          # the int8 oracle's bound
+            cache_bytes = live * KV * (2 * D + 2 * 4)
+        else:
+            k, v = t(B, T, KV, D, dtype=dtype), t(B, T, KV, D, dtype=dtype)
+            run = lambda: ops.decode_attention(q, k, v, lengths)
+            plain = lambda: ref.decode_ref(q, k, v, lengths)
+            lib = lambda: F.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=valid[:, None, None, :], enable_gqa=True)
+            tol = TOL[str(dtype).split(".")[-1]]
+            cache_bytes = live * KV * 2 * D * k.element_size()
+        cases.append(dict(
+            kernel="flash_decode", label=label, source=source, run=run,
+            plain=plain, library=lib, tol=tol, rel=False,
+            nbytes=cache_bytes + 2 * B * H * D * q.element_size() + B * 8,
+            ops=4 * D * H * live, matmul_dtype=dtype))
+
+    decode("qwen3-0.6b decode, bf16, ragged lengths (B=8 H=16 KV=8 T=4096 "
+           "D=128)", "configs/qwen3_0_6b.py", 8, 16, 8, 4096, 128, bf16, False)
+    # q in float32 so that the JAX int8 test's 2e-5 bound applies
+    decode("qwen3-0.6b decode, int8 cache + scales, f32 q (B=8 H=16 KV=8 "
+           "T=4096 D=128)", "configs/qwen3_0_6b.py", 8, 16, 8, 4096, 128, f32,
+           True)
+    decode("recurrentgemma-2b MQA decode, bf16 (B=8 H=10 KV=1 T=2048 D=256)",
+           "configs/recurrentgemma_2b.py", 8, 10, 1, 2048, 256, bf16, False)
+
+    b, s, h, p, n = 2, 2048, 64, 64, 128
+    x = t(b, s, h, p, scale=0.5)
+    dt = F.softplus(t(b, s, h))
+    A = -torch.exp(t(h, scale=0.3))
+    Bm, Cm = t(b, s, n, scale=0.5), t(b, s, n, scale=0.5)
+    cases.append(dict(
+        kernel="ssd_scan", source="configs/mamba2_1_3b.py",
+        label=f"mamba2-1.3b SSD, f32, chunk 256 (b={b} s={s} h={h} p={p} "
+              f"n={n})",
+        run=lambda: ops.ssd(x, dt, A, Bm, Cm, chunk=256),
+        plain=lambda: ref.ssd_ref(x, dt, A, Bm, Cm), library=None,
+        tol=1e-4, rel=True,
+        nbytes=4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n
+                    + b * h * p * n),
+        ops=5 * b * s * h * p * n, matmul_dtype=None))
+
+    for dtype in (f32, bf16):
+        B, S, C = 2, 4096, 2560
+        a = torch.sigmoid(t(B, S, C)).to(dtype)
+        bb = t(B, S, C, scale=0.3, dtype=dtype)
+        cases.append(dict(
+            kernel="rglru_scan", source="configs/recurrentgemma_2b.py",
+            label=f"recurrentgemma-2b RG-LRU, {str(dtype).split('.')[-1]} "
+                  f"(B={B} S={S} C={C})",
+            run=(lambda a=a, bb=bb: ops.rglru(a, bb)),
+            plain=(lambda a=a, bb=bb: ref.rglru_ref(a, bb)), library=None,
+            tol=1e-4 if dtype == f32 else 5e-2, rel=False,
+            nbytes=3 * B * S * C * a.element_size(), ops=2 * B * S * C,
+            matmul_dtype=None))
+    return cases
+
+
+def case_bound(case):
+    """Least time (ms) for a case: its bytes over HBM bandwidth, and its
+    operations over the card's peak for their type — the bf16 tensor-core
+    rate for attention's products on bf16 inputs, the float32 rate of the
+    CUDA cores otherwise (float32 products, and the scans, which are no
+    matrix products); the larger, and which bounds it."""
+    import torch
+
+    t_bytes = case["nbytes"] / HBM_BYTES_PER_S * 1e3
+    peak = BF16_TC_FLOPS_PER_S if case["matmul_dtype"] == torch.bfloat16 \
+        else F32_FLOPS_PER_S
+    t_ops = case["ops"] / peak * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def drive_model_kernels(cases):
+    """Phase 4's path: every case once through its entry point, with every
+    launch count set to 0 just before and read just after."""
+    import torch
+
+    from repro_torch.kernels import (flash_attention, flash_decode, rglru_scan,
+                                     ssd_scan)
+
+    mods = (flash_attention, flash_decode, ssd_scan, rglru_scan)
+    for mod in mods:
+        mod.reset_launches()
+    outs = [case["run"]() for case in cases]
+    torch.cuda.synchronize()
+    launches = {}
+    for mod in mods:
+        launches.update(mod.launches)
+    calls = {name: sum(c["kernel"] == name for c in cases)
+             for name in launches}
+    print(f"model kernels: launches {launches} for calls {calls}")
+    check(launches == calls, f"launches {launches} != calls {calls}")
+    return outs, launches
+
+
+def check_model_kernels(cases, outs):
+    """Each output against its plain version on the same inputs on the card.
+    Returns the largest absolute error per kernel."""
+    import torch
+
+    worst = {}
+    for case, out in zip(cases, outs):
+        want = case["plain"]()
+        errs = []
+        for o, w in zip(out if isinstance(out, tuple) else (out,),
+                        want if isinstance(want, tuple) else (want,)):
+            check(o.shape == w.shape and bool(torch.isfinite(o).all()),
+                  f"{case['label']}: shape {tuple(o.shape)} or non-finite")
+            err = float((o.float() - w.float()).abs().max())
+            scale = float(w.float().abs().max()) if case["rel"] else 1.0
+            errs.append((err, err / scale))
+        err_abs = max(e[0] for e in errs)
+        err = max(e[1] for e in errs)
+        case["max_abs_err"] = err_abs
+        print(f"{case['label']}: {'rel' if case['rel'] else 'max abs'} err "
+              f"{err} (bound {case['tol']}), max abs {err_abs}")
+        check(err < case["tol"], f"{case['label']}: {err} >= {case['tol']}")
+        worst[case["kernel"]] = max(worst.get(case["kernel"], 0.0), err_abs)
+        del want
+    return worst
+
+
+def timed(fn):
+    """(CUDA-event wall ms, profiler device ms) per call, with fewer
+    repetitions for calls that take long (the plain scans run thousands of
+    small launches)."""
+    import torch
+
+    start, stop = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    fn()
+    start.record()
+    fn()
+    stop.record()
+    stop.synchronize()
+    once = start.elapsed_time(stop)
+    if once > 20.0:
+        return cuda_ms(fn, warmup=0, samples=3, reps=1), device_ms(fn, reps=2)
+    if once > 2.0:
+        return cuda_ms(fn, warmup=1, samples=5, reps=2), device_ms(fn, reps=10)
+    return cuda_ms(fn), device_ms(fn)
+
+
+def time_model_kernels(cases):
+    for case in cases:
+        wall, dev = zip(*(timed(f) if f else (None, None) for f in (
+            case["run"], case["plain"], case["library"])))
+        case.update(case_bound(case), ms=wall[0], plain_ms=wall[1],
+                    library_ms=wall[2], device_ms=dev[0],
+                    plain_device_ms=dev[1], library_device_ms=dev[2])
+        print(f"time {case['label']}: kernel {wall[0]} ms (device {dev[0]} "
+              f"ms), plain {wall[1]} ms (device {dev[1]} ms), library "
+              f"{wall[2]} ms (device {dev[2]} ms), bound {case['bound_ms']} ms"
+              f" by {case['bound_by']} ({case['nbytes']} B, {case['ops']} "
+              f"flop)")
+
+
 def main() -> int:
     import torch
 
@@ -384,7 +632,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    from repro_torch.kernels import taa_update
+    from repro_torch.kernels import build
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -394,32 +642,61 @@ def main() -> int:
           f"{sys.version.split()[0]}")
 
     t0 = time.monotonic()
-    lib = taa_update.build()
-    print(f"build: {lib.name} in {time.monotonic() - t0} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    libs = build.build_all()
+    print(f"build: {len(libs)} libraries, one nvcc each in parallel, in "
+          f"{time.monotonic() - t0} s")
+    for lib in libs.values():
+        print(f"  {lib.name}")
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"    ptxas: {line.strip()}")
 
+    t1 = time.monotonic()
     errs = check_kernels()
     times, bnd = time_kernels()
+    t2 = time.monotonic()
     runs = main_path()
     check_main_path(runs)
+    t3 = time.monotonic()
+    cases = model_cases()
+    print(f"phase 4 inputs made in {time.monotonic() - t3} s")
+    outs, model_launches = drive_model_kernels(cases)
+    errs.update(check_model_kernels(cases, outs))
+    del outs
+    time_model_kernels(cases)
+    print(f"phase seconds: build {t1 - t0}, taa kernels {t2 - t1}, DiT-XL "
+          f"serving {t3 - t2}, model kernels {time.monotonic() - t3}")
 
     launches = {"taa_gram": runs["taa staged"]["launches"]["taa_gram"],
                 "taa_apply": runs["taa staged"]["launches"]["taa_apply"],
-                "taa_round": runs["taa fused"]["launches"]["taa_round"]}
+                "taa_round": runs["taa fused"]["launches"]["taa_round"],
+                **model_launches}
     rows = []
     for name in ("taa_gram", "taa_apply", "taa_round"):
         t = times[name]
         rows.append(dict(
-            name=name, route="cuda", source=KERNEL_SOURCE,
+            name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=launches[name],
             max_abs_err=errs[name], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=bnd[name]["bound_ms"], bound_by=bnd[name]["bound_by"],
-            library_ms=t["library_ms"], max_err=errs[name],
-            kernel_ms=t["ms"], device_ms=t["device_ms"],
+            library_ms=t["library_ms"], device_ms=t["device_ms"],
             plain_device_ms=t["plain_device_ms"],
             library_device_ms=t["library_device_ms"]))
+    keys = ("label", "ms", "device_ms", "plain_ms", "plain_device_ms",
+            "library_ms", "library_device_ms", "bound_ms", "bound_by",
+            "nbytes", "ops", "max_abs_err", "tol")
+    for name in ("flash_attention", "flash_decode", "ssd_scan", "rglru_scan"):
+        mine = [c for c in cases if c["kernel"] == name]
+        c = mine[0]   # the row's numbers are its first case's; all in "cases"
+        rows.append(dict(
+            name=name, route="cuda", source=SOURCES[name],
+            replaces=REPLACES[name], launches=launches[name],
+            max_abs_err=errs[name], ms=c["ms"], plain_ms=c["plain_ms"],
+            bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+            library_ms=c["library_ms"], device_ms=c["device_ms"],
+            plain_device_ms=c["plain_device_ms"],
+            library_device_ms=c["library_device_ms"], case=c["label"],
+            cases=[{k: m[k] for k in keys} for m in mine]))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

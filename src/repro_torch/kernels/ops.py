@@ -1,9 +1,14 @@
-"""Dispatch for the TAA-update kernels: the tensor's device decides.
+"""Dispatch for every kernel of the port: the tensor's device decides.
 
 A CPU tensor takes the plain PyTorch version (:mod:`repro_torch.kernels.ref`);
-a CUDA tensor takes the hand-written kernel (:mod:`repro_torch.kernels.
-taa_update`), and a kernel that cannot launch raises — there is no
-fallback.  Every function takes an optional leading lane axis.
+a CUDA tensor takes the hand-written kernel (:mod:`~repro_torch.kernels.
+taa_update`, :mod:`~repro_torch.kernels.flash_attention`,
+:mod:`~repro_torch.kernels.flash_decode`, :mod:`~repro_torch.kernels.
+ssd_scan`, :mod:`~repro_torch.kernels.rglru_scan`), and a kernel that cannot
+launch raises — there is no fallback.  The model-kernel entry points keep
+the JAX package's signatures (``repro/kernels/ops.py``) without its
+``use_pallas``/``interpret`` knobs; the TAA functions take an optional
+leading lane axis.
 
 The m x m solves of the staged round stay ``torch.linalg.solve``, as the
 JAX package leaves them to XLA outside its kernels; the fused round solves
@@ -13,7 +18,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rglru_scan as _rg
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import taa_update as _k
 
 
@@ -22,7 +31,37 @@ def _on_card(t: torch.Tensor) -> bool:
         return True
     if t.device.type == "cpu":
         return False
-    raise ValueError(f"no TAA kernel or plain path for device {t.device}")
+    raise ValueError(f"no kernel or plain path for device {t.device}")
+
+
+def attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q (B, H, S, D); k, v (B, H, T, D) -> (B, H, S, D) in q's dtype."""
+    if _on_card(q):
+        return _fa.flash_attention(q, k, v, causal=causal, window=window)
+    return _ref.attention_ref(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q, k_cache, v_cache, lengths):
+    """q (B, H, D); caches (B, T, KV, D); lengths (B,) -> (B, H, D)."""
+    if _on_card(q):
+        return _fd.flash_decode(q, k_cache, v_cache, lengths)
+    return _ref.decode_ref(q, k_cache, v_cache, lengths)
+
+
+def ssd(x, dt, A, B, C, *, chunk: int = 128):
+    """Mamba2 SSD scan.  Returns (y, final_state)."""
+    if _on_card(x):
+        return _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    return _ref.ssd_ref(x, dt, A, B, C)
+
+
+def rglru(a, b):
+    """Linear recurrence h_t = a_t h_{t-1} + b_t over axis 1: in a's dtype
+    from the kernel, float32 from the plain version (as in the JAX
+    package)."""
+    if _on_card(a):
+        return _rg.rglru_scan_kernel(a, b)
+    return _ref.rglru_ref(a, b)
 
 
 def _suffix_sum(x, dim):

@@ -21,26 +21,23 @@ dispatch.  The wrappers also take the unbatched shapes of the JAX package
 wrapper counts its launches in :data:`launches`.
 
 Nothing here imports or builds anything at import time: the library is
-compiled on the first launch (``build()``), into ``build/kernels/`` at the
-repository root, named by a hash of the source so an edit rebuilds.
+compiled on the first launch (:mod:`repro_torch.kernels.build`), into
+``build/kernels/`` at the repository root, named by a hash of the source so
+an edit rebuilds.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Dict, Tuple
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "taa_update.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from repro_torch.kernels import build as _build
+from repro_torch.kernels.build import BUILD_DIR, NVCC_FLAGS  # noqa: F401
+
+SOURCE = _build.CSRC / "taa_update.cu"
 MAX_M = 8
 MODES = {"taa": 0, "aa": 1, "aa+": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -55,42 +52,13 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = Path(home) / "bin" / "nvcc"
-    found = str(path) if path.exists() else shutil.which("nvcc")
-    if not found:
-        raise RuntimeError(f"nvcc not found under {home}/bin or on PATH")
-    return found
-
-
 def library_path() -> Path:
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libtaa_update_{tag}.so"
-
-
-def build() -> Path:
-    """Compile the kernels' shared library unless this source's build is
-    already there.  The compiler's report (registers, shared memory,
-    spills) is kept beside it as ``.log``."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stderr[-4000:]}")
-    os.replace(tmp, out)
-    return out
+    return _build.library_path(SOURCE)
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+    lib = _build.load(SOURCE)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.taa_gram_launch.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
     lib.taa_apply_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, P]
@@ -100,15 +68,6 @@ def _lib() -> ctypes.CDLL:
                lib.taa_round_launch):
         fn.restype = I
     return lib
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
 def _lanes(hist: torch.Tensor, *rest: torch.Tensor):
@@ -144,12 +103,7 @@ def _check(name: str, hists: Tuple[torch.Tensor, ...],
         if tuple(t.shape) != want or t.dtype != torch.float32:
             raise ValueError(f"{name}: expected float32 {want}, got "
                              f"{tuple(t.shape)} {t.dtype}")
-    for t in hists + rows + per_row:
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: inputs must be contiguous")
-        if t.device != hist.device or t.device.type != "cuda":
-            raise ValueError(f"{name}: every input must be on one CUDA "
-                             f"device, got {t.device} and {hist.device}")
+    _build.check_on_one_card(name, *hists, *rows, *per_row)
     return B, m, T, D
 
 
@@ -168,8 +122,8 @@ def taa_gram(dF: torch.Tensor, R: torch.Tensor, mask: torch.Tensor):
     err = _lib().taa_gram_launch(
         dF.data_ptr(), R.data_ptr(), mask.data_ptr(), G.data_ptr(),
         u.data_ptr(), B, m, T, D, _DTYPES[dF.dtype], dF.device.index or 0,
-        _stream(dF))
-    _raise_on(err, "taa_gram")
+        _build.stream_of(dF))
+    _build.raise_on(err, "taa_gram")
     launches["taa_gram"] += 1
     return (G[0], u[0]) if squeeze else (G, u)
 
@@ -185,8 +139,8 @@ def taa_apply(x, R, dX, dF, gamma, mask):
     err = _lib().taa_apply_launch(
         x.data_ptr(), R.data_ptr(), dX.data_ptr(), dF.data_ptr(),
         gamma.data_ptr(), mask.data_ptr(), out.data_ptr(), B, m, T, D,
-        _DTYPES[x.dtype], x.device.index or 0, _stream(x))
-    _raise_on(err, "taa_apply")
+        _DTYPES[x.dtype], x.device.index or 0, _build.stream_of(x))
+    _build.raise_on(err, "taa_apply")
     launches["taa_apply"] += 1
     return out[0] if squeeze else out
 
@@ -207,7 +161,7 @@ def taa_round(x, R, dX, dF, mask, guard, *, mode: str = "taa",
         x.data_ptr(), R.data_ptr(), dX.data_ptr(), dF.data_ptr(),
         mask.data_ptr(), guard.data_ptr(), out.data_ptr(), B, m, T, D,
         _DTYPES[x.dtype], MODES[mode], float(lam), x.device.index or 0,
-        _stream(x))
-    _raise_on(err, "taa_round")
+        _build.stream_of(x))
+    _build.raise_on(err, "taa_round")
     launches["taa_round"] += 1
     return out[0] if squeeze else out

@@ -11,7 +11,9 @@ import torch
 from repro_torch.configs.registry import get_arch
 from repro_torch.core.coeffs import ddim_coeffs
 from repro_torch.diffusion.convert import dit_init
-from repro_torch.kernels import ops, taa_update
+from repro_torch.kernels import build
+from repro_torch.kernels import (flash_attention, flash_decode, ops,
+                                  rglru_scan, ssd_scan, taa_update)
 from repro_torch.launch import serve
 from repro_torch.sampling import SamplingEngine, get_sampler
 from tests.test_torch_helpers import normal
@@ -103,11 +105,19 @@ def test_kernel_wrappers_validate_shapes_then_refuse_cpu_tensors(lanes):
     assert taa_update._lib.cache_info().currsize == 0
 
 
-def test_kernel_build_is_repo_local_and_gitignored():
-    assert taa_update.BUILD_DIR == REPO / "build" / "kernels"
-    assert taa_update.SOURCE.exists()
+@pytest.mark.parametrize("kernel", [taa_update, flash_attention,
+                                    flash_decode, ssd_scan, rglru_scan],
+                         ids=lambda m: m.__name__.rsplit(".", 1)[-1])
+def test_kernel_build_is_repo_local_and_gitignored(kernel):
+    """One library per kernel source, built into the gitignored
+    build/kernels/ for sm_90a."""
+    assert build.BUILD_DIR == REPO / "build" / "kernels"
+    assert kernel.SOURCE.exists() and kernel.SOURCE in build.SOURCES
     ignored = (REPO / ".gitignore").read_text().split()
     assert "build/" in ignored
-    assert "arch=compute_90a,code=sm_90a" in taa_update.NVCC_FLAGS
-    assert os.path.basename(taa_update.library_path()).startswith(
-        "libtaa_update_")
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    assert os.path.basename(kernel.library_path()).startswith(
+        f"lib{kernel.SOURCE.stem}_")
+    assert kernel.library_path().parent == build.BUILD_DIR
+    assert taa_update.BUILD_DIR == build.BUILD_DIR
+    assert taa_update.NVCC_FLAGS == build.NVCC_FLAGS
