@@ -9,7 +9,9 @@ is not 0):
 1. device and build: the card's name and power limit from nvidia-smi, then
    every kernel library compiled from ``src/repro_torch/kernels/csrc`` (one
    nvcc per source, all started together; build seconds and the compiler's
-   register report);
+   register report, summed for the two redesigned kernels); the tensor-core
+   attention kernel's SASS must hold HGMMA and UTMALDG instructions (where
+   cuobjdump is found);
 2. each TAA-update kernel against its plain PyTorch version on the card, at the main
    path's shapes (B=2 lanes, m=3, T=25, D=4096 = 256 tokens x latent 16),
    float32 and bfloat16, a ragged D=4000, every round mode with a nonzero
@@ -27,10 +29,13 @@ is not 0):
    int8 cache, Mamba2 SSD scan, RG-LRU scan) driven once each through
    ``repro_torch.kernels.ops`` (``flash_decode`` for int8) at the full
    widths of DiT-XL, qwen3-0.6b, recurrentgemma-2b and mamba2-1.3b, every
-   launch count set to 0 just before and checked equal to the calls just
-   after; each output against its plain version on the same inputs (the
-   JAX tests' bounds); then kernel / plain / library times beside the
-   least time the card could take.
+   launch count set to 0 just before and checked equal to what the calls
+   should launch just after (the tensor-core attention kernel for bf16, the
+   CUDA-core one for float32; the decode's split pass, and its combine pass
+   where the cache is split); each case's path and split count printed;
+   each output against its plain version on the same inputs (the JAX
+   tests' bounds); then kernel / plain / library times and achieved
+   TFLOP/s and TB/s beside the least time the card could take.
 
 Then one JSON line of per-kernel numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Without CUDA, or run from a directory
@@ -61,13 +66,15 @@ BF16_TC_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {name: CSRC + f"{name}.cu" for name in (
-    "flash_attention", "flash_decode", "ssd_scan", "rglru_scan")}
+    "flash_attention", "flash_attention_tc", "flash_decode", "ssd_scan",
+    "rglru_scan")}
 SOURCES.update({name: CSRC + "taa_update.cu"
                 for name in ("taa_gram", "taa_apply", "taa_round")})
 REPLACES = {"taa_gram": "src/repro/kernels/taa_update.py:68",
             "taa_apply": "src/repro/kernels/taa_update.py:116",
             "taa_round": "src/repro/kernels/taa_update.py:239",
             "flash_attention": "src/repro/kernels/flash_attention.py:97",
+            "flash_attention_tc": "src/repro/kernels/flash_attention.py:97",
             "flash_decode": "src/repro/kernels/flash_decode.py:105",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:87",
             "rglru_scan": "src/repro/kernels/rglru_scan.py:51"}
@@ -117,6 +124,37 @@ def device_ms(fn, *, reps: int = 25):
     spans = [e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == DeviceType.CUDA]
     return sum(spans) / 1e3 / reps if spans else None
+
+
+def ptxas_summary(lib) -> str:
+    """Registers and spill bytes of every kernel in a library, from the
+    compiler's report kept beside it."""
+    import re
+
+    text = lib.with_suffix(".log").read_text()
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+    spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", text)]
+    return (f"{len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
+            f"{sum(x > 0 for x in spills)} with spill stores (at most "
+            f"{max(spills)} bytes)")
+
+
+def check_sass(lib) -> None:
+    """The tensor-core kernel is Hopper's: its SASS holds warpgroup MMAs
+    (HGMMA) and TMA loads (UTMALDG).  Checked where cuobjdump is found."""
+    import shutil
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(cuobjdump).exists():
+        print("SASS of flash_attention_tc: not checked (no cuobjdump)")
+        return
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {op: sum(op in line for line in sass.splitlines())
+              for op in ("HGMMA", "UTMALDG")}
+    print(f"SASS of flash_attention_tc: {counts} instructions")
+    check(all(n > 0 for n in counts.values()),
+          f"flash_attention_tc SASS lacks HGMMA or UTMALDG: {counts}")
 
 
 # --- phase 2: kernels against their plain versions --------------------------
@@ -409,7 +447,7 @@ def model_cases():
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import flash_decode, ops, ref
+    from repro_torch.kernels import flash_attention, flash_decode, ops, ref
 
     rng = np.random.default_rng(SEED + 4)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -437,8 +475,13 @@ def model_cases():
             if not window else \
             (lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
         e = q.element_size()
+        path = flash_attention.attention_path(dtype, D)
+        tc = path == "tensor_cores"
         cases.append(dict(
-            kernel="flash_attention", label=label, source=source,
+            kernel="flash_attention_tc" if tc else "flash_attention",
+            path=path, expect={"flash_attention": 1,
+                               "flash_attention_tc": int(tc)},
+            label=label, source=source,
             run=lambda: ops.attention(q, k, v, causal=causal, window=window),
             plain=lambda: ref.attention_ref(q, k, v, causal=causal,
                                             window=window),
@@ -456,7 +499,8 @@ def model_cases():
 
     def decode(label, source, B, H, KV, T, D, dtype, int8):
         q = t(B, H, D, dtype=dtype)
-        lengths = torch.from_numpy(rng.integers(1, T + 1, size=B)).cuda()
+        lengths = torch.from_numpy(rng.integers(1, T + 1, size=B)).to(
+            torch.int32).cuda()
         lengths[0] = T
         valid = torch.arange(T, device="cuda")[None] < lengths[:, None]
         live = int(lengths.sum())
@@ -477,8 +521,13 @@ def model_cases():
                 attn_mask=valid[:, None, None, :], enable_gqa=True)
             tol = TOL[str(dtype).split(".")[-1]]
             cache_bytes = live * KV * 2 * D * k.element_size()
+        splits, chunk = flash_decode.split_plan(B, KV, T, D)
         cases.append(dict(
-            kernel="flash_decode", label=label, source=source, run=run,
+            kernel="flash_decode", splits=splits, chunk=chunk,
+            path=f"{splits} splits of {chunk} keys",
+            expect={"flash_decode": 1,
+                    "flash_decode_combine": int(splits > 1)},
+            label=label, source=source, run=run,
             plain=plain, library=lib, tol=tol, rel=False,
             nbytes=cache_bytes + 2 * B * H * D * q.element_size() + B * 8,
             ops=4 * D * H * live, matmul_dtype=dtype))
@@ -498,7 +547,8 @@ def model_cases():
     A = -torch.exp(t(h, scale=0.3))
     Bm, Cm = t(b, s, n, scale=0.5), t(b, s, n, scale=0.5)
     cases.append(dict(
-        kernel="ssd_scan", source="configs/mamba2_1_3b.py",
+        kernel="ssd_scan", expect={"ssd_scan": 1},
+        source="configs/mamba2_1_3b.py",
         label=f"mamba2-1.3b SSD, f32, chunk 256 (b={b} s={s} h={h} p={p} "
               f"n={n})",
         run=lambda: ops.ssd(x, dt, A, Bm, Cm, chunk=256),
@@ -513,7 +563,8 @@ def model_cases():
         a = torch.sigmoid(t(B, S, C)).to(dtype)
         bb = t(B, S, C, scale=0.3, dtype=dtype)
         cases.append(dict(
-            kernel="rglru_scan", source="configs/recurrentgemma_2b.py",
+            kernel="rglru_scan", expect={"rglru_scan": 1},
+            source="configs/recurrentgemma_2b.py",
             label=f"recurrentgemma-2b RG-LRU, {str(dtype).split('.')[-1]} "
                   f"(B={B} S={S} C={C})",
             run=(lambda a=a, bb=bb: ops.rglru(a, bb)),
@@ -556,8 +607,14 @@ def drive_model_kernels(cases):
     launches = {}
     for mod in mods:
         launches.update(mod.launches)
-    calls = {name: sum(c["kernel"] == name for c in cases)
+    # what each call should launch: the tensor-core kernel for the bf16
+    # attention cases (counted under both attention keys), the split pass
+    # and, with more than one split, the combine for each decode case
+    calls = {name: sum(c["expect"].get(name, 0) for c in cases)
              for name in launches}
+    for case in cases:
+        if "path" in case:
+            print(f"{case['label']}: path {case['path']}")
     print(f"model kernels: launches {launches} for calls {calls}")
     check(launches == calls, f"launches {launches} != calls {calls}")
     return outs, launches
@@ -615,14 +672,20 @@ def time_model_kernels(cases):
     for case in cases:
         wall, dev = zip(*(timed(f) if f else (None, None) for f in (
             case["run"], case["plain"], case["library"])))
+        # achieved rates over the kernel's device time (its wall time where
+        # the profiler saw no device work)
+        t = dev[0] if dev[0] else wall[0]
         case.update(case_bound(case), ms=wall[0], plain_ms=wall[1],
                     library_ms=wall[2], device_ms=dev[0],
-                    plain_device_ms=dev[1], library_device_ms=dev[2])
+                    plain_device_ms=dev[1], library_device_ms=dev[2],
+                    achieved_tflops=case["ops"] / t / 1e9,
+                    achieved_tb_s=case["nbytes"] / t / 1e9)
         print(f"time {case['label']}: kernel {wall[0]} ms (device {dev[0]} "
               f"ms), plain {wall[1]} ms (device {dev[1]} ms), library "
               f"{wall[2]} ms (device {dev[2]} ms), bound {case['bound_ms']} ms"
               f" by {case['bound_by']} ({case['nbytes']} B, {case['ops']} "
-              f"flop)")
+              f"flop); achieved {case['achieved_tflops']} TFLOP/s, "
+              f"{case['achieved_tb_s']} TB/s")
 
 
 def main() -> int:
@@ -650,6 +713,9 @@ def main() -> int:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    ptxas: {line.strip()}")
+    for name in ("flash_attention_tc", "flash_decode"):
+        print(f"ptxas {name}: {ptxas_summary(libs[ROOT / SOURCES[name]])}")
+    check_sass(libs[ROOT / SOURCES["flash_attention_tc"]])
 
     t1 = time.monotonic()
     errs = check_kernels()
@@ -682,21 +748,30 @@ def main() -> int:
             library_ms=t["library_ms"], device_ms=t["device_ms"],
             plain_device_ms=t["plain_device_ms"],
             library_device_ms=t["library_device_ms"]))
-    keys = ("label", "ms", "device_ms", "plain_ms", "plain_device_ms",
+    keys = ("label", "path", "ms", "device_ms", "plain_ms", "plain_device_ms",
             "library_ms", "library_device_ms", "bound_ms", "bound_by",
-            "nbytes", "ops", "max_abs_err", "tol")
-    for name in ("flash_attention", "flash_decode", "ssd_scan", "rglru_scan"):
+            "nbytes", "ops", "achieved_tflops", "achieved_tb_s",
+            "max_abs_err", "tol")
+    # "flash_attention" counts every attention launch, "flash_attention_tc"
+    # those of the tensor-core kernel; "flash_decode" the split passes, with
+    # the combine passes beside them
+    for name in ("flash_attention", "flash_attention_tc", "flash_decode",
+                 "ssd_scan", "rglru_scan"):
         mine = [c for c in cases if c["kernel"] == name]
         c = mine[0]   # the row's numbers are its first case's; all in "cases"
+        extra = {"combine_launches": launches["flash_decode_combine"]} \
+            if name == "flash_decode" else {}
         rows.append(dict(
             name=name, route="cuda", source=SOURCES[name],
-            replaces=REPLACES[name], launches=launches[name],
+            replaces=REPLACES[name], launches=launches[name], **extra,
             max_abs_err=errs[name], ms=c["ms"], plain_ms=c["plain_ms"],
             bound_ms=c["bound_ms"], bound_by=c["bound_by"],
             library_ms=c["library_ms"], device_ms=c["device_ms"],
             plain_device_ms=c["plain_device_ms"],
-            library_device_ms=c["library_device_ms"], case=c["label"],
-            cases=[{k: m[k] for k in keys} for m in mine]))
+            library_device_ms=c["library_device_ms"],
+            achieved_tflops=c["achieved_tflops"],
+            achieved_tb_s=c["achieved_tb_s"], case=c["label"],
+            cases=[{k: m.get(k) for k in keys} for m in mine]))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

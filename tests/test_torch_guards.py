@@ -121,3 +121,13 @@ def test_kernel_build_is_repo_local_and_gitignored(kernel):
     assert kernel.library_path().parent == build.BUILD_DIR
     assert taa_update.BUILD_DIR == build.BUILD_DIR
     assert taa_update.NVCC_FLAGS == build.NVCC_FLAGS
+
+
+def test_tensor_core_attention_is_built_like_the_others():
+    """The bf16 tensor-core attention kernel is a source of its own, built
+    by the same nvcc call for sm_90a (wgmma needs the ``a``)."""
+    assert flash_attention.SOURCE_TC.exists()
+    assert flash_attention.SOURCE_TC in build.SOURCES
+    assert flash_attention.library_path_tc().parent == build.BUILD_DIR
+    assert os.path.basename(flash_attention.library_path_tc()).startswith(
+        "libflash_attention_tc_")

@@ -194,8 +194,9 @@ def test_ops_on_cpu_tensors_launch_and_build_nothing():
     tops.ssd(*(_t(a) for a in _ssd_inputs((1, 8, 2, 4, 8))))
     tops.rglru(q[0], k[0])
     for mod in KERNEL_MODULES:
-        assert list(mod.launches.values()) == [0], mod.__name__
+        assert set(mod.launches.values()) == {0}, mod.__name__
         assert mod._lib.cache_info().currsize == 0, mod.__name__
+    assert fa._lib_tc.cache_info().currsize == 0
 
 
 def test_ops_refuse_other_devices():
