@@ -9,13 +9,16 @@ is not 0):
 1. device and build: the card's name and power limit from nvidia-smi, then
    every kernel library compiled from ``src/repro_torch/kernels/csrc`` (one
    nvcc per source, all started together; build seconds and the compiler's
-   register report, summed for the two redesigned kernels); the tensor-core
-   attention kernel's SASS must hold HGMMA and UTMALDG instructions (where
-   cuobjdump is found);
+   register report, summed for the four redesigned kernels); the tensor-core
+   attention kernel's SASS must hold HGMMA and UTMALDG instructions, the
+   SSD scan's HMMA (where cuobjdump is found);
 2. each TAA-update kernel against its plain PyTorch version on the card, at the main
    path's shapes (B=2 lanes, m=3, T=25, D=4096 = 256 tokens x latent 16),
    float32 and bfloat16, a ragged D=4000, every round mode with a nonzero
-   guard; then kernel / plain / library times (CUDA events, median of 25
+   guard, and the round at m=8, T=1000 (its Gram partials in device
+   memory); the round's cooperative grid printed (CTAs, tiles, CTAs the
+   card holds at once; more CTAs than lanes) and two runs bit for bit;
+   then kernel / plain / library times (CUDA events, median of 25
    windows; and device time from torch.profiler) beside the least time
    the card could take;
 3. the main path at full DiT-XL width (28 layers, d 1152, 16 x 72 heads,
@@ -32,9 +35,11 @@ is not 0):
    launch count set to 0 just before and checked equal to what the calls
    should launch just after (the tensor-core attention kernel for bf16, the
    CUDA-core one for float32; the decode's split pass, and its combine pass
-   where the cache is split); each case's path and split count printed;
+   where the cache is split; the SSD scan's chunk and state-pass launches);
+   each case's path, split count or chunk printed;
    each output against its plain version on the same inputs (the JAX
-   tests' bounds); then kernel / plain / library times and achieved
+   tests' bounds) and run again bit for bit; then kernel / plain / library
+   times and achieved
    TFLOP/s and TB/s beside the least time the card could take.
 
 Then one JSON line of per-kernel numbers, and last the line
@@ -63,6 +68,7 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32, outside the tensor cores
 BF16_TC_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+TF32_TC_FLOPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
 TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {name: CSRC + f"{name}.cu" for name in (
@@ -139,22 +145,23 @@ def ptxas_summary(lib) -> str:
             f"{max(spills)} bytes)")
 
 
-def check_sass(lib) -> None:
-    """The tensor-core kernel is Hopper's: its SASS holds warpgroup MMAs
-    (HGMMA) and TMA loads (UTMALDG).  Checked where cuobjdump is found."""
+def check_sass(lib, name: str, ops) -> None:
+    """A tensor-core kernel's SASS holds the instructions its design rests
+    on: warpgroup MMAs (HGMMA) and TMA loads (UTMALDG) for the attention
+    kernel, mma.sync (HMMA) for the SSD scan.  Checked where cuobjdump is
+    found."""
     import shutil
 
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(cuobjdump).exists():
-        print("SASS of flash_attention_tc: not checked (no cuobjdump)")
+        print(f"SASS of {name}: not checked (no cuobjdump)")
         return
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
-    counts = {op: sum(op in line for line in sass.splitlines())
-              for op in ("HGMMA", "UTMALDG")}
-    print(f"SASS of flash_attention_tc: {counts} instructions")
+    counts = {op: sum(op in line for line in sass.splitlines()) for op in ops}
+    print(f"SASS of {name}: {counts} instructions")
     check(all(n > 0 for n in counts.values()),
-          f"flash_attention_tc SASS lacks HGMMA or UTMALDG: {counts}")
+          f"{name} SASS lacks one of {ops}: {counts}")
 
 
 # --- phase 2: kernels against their plain versions --------------------------
@@ -190,6 +197,7 @@ def check_kernels():
     from repro_torch.kernels import ref, taa_update as k
 
     worst = {"taa_gram": 0.0, "taa_apply": 0.0, "taa_round": 0.0}
+    grid = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         tol = TOL[name]
@@ -212,6 +220,12 @@ def check_kernels():
             for mode in ("taa", "aa", "aa+"):
                 out = k.taa_round(a["x"], a["R"], a["dX"], a["dF"],
                                   a["mask"], a["guard"], mode=mode, lam=1e-6)
+                grid = dict(k.last_round_grid)
+                again = k.taa_round(a["x"], a["R"], a["dX"], a["dF"],
+                                    a["mask"], a["guard"], mode=mode,
+                                    lam=1e-6)
+                check(torch.equal(out, again),
+                      f"taa_round {name} D={D} {mode}: two runs differ")
                 want = ref.taa_round_ref(a["x"], a["R"], a["dX"], a["dF"],
                                          a["mask"], a["guard"], mode=mode,
                                          lam=1e-6)
@@ -225,9 +239,29 @@ def check_kernels():
             check(err_a < tol, f"taa_apply {name} D={D}: {err_a} >= {tol}")
             check(max(errs_r) < tol,
                   f"taa_round {name} D={D}: {errs_r} >= {tol}")
+            print(f"taa_round grid {name} D={D}: {grid['ctas']} CTAs "
+                  f"(one cooperative launch) over {grid['tiles']} tiles of "
+                  f"{k.ROUND_TILE} floats, {grid['co_resident']} CTAs "
+                  f"co-resident; two runs bit for bit")
+            check(grid["ctas"] > a["x"].shape[0],
+                  f"taa_round grid {grid} not wider than the lanes")
             if dtype == torch.float32 and D == 4096:
                 worst.update(taa_gram=err_g, taa_apply=err_a,
                              taa_round=max(errs_r))
+    # m=8, T=1000: 1000 * (64 + 16) floats of G, u per lane, more than a
+    # block's shared memory; the Gram partials live in device memory
+    a = kernel_inputs(torch.float32, 64, B=1, m=8, T=1000)
+    errs = []
+    for mode in ("taa", "aa", "aa+"):
+        out = k.taa_round(a["x"], a["R"], a["dX"], a["dF"], a["mask"],
+                          a["guard"], mode=mode, lam=1e-6)
+        want = ref.taa_round_ref(a["x"], a["R"], a["dX"], a["dF"], a["mask"],
+                                 a["guard"], mode=mode, lam=1e-6)
+        errs.append(float((out - want).abs().max()))
+    print(f"taa_round float32 B=1 m=8 T=1000 D=64 taa/aa/aa+: max_abs_err "
+          f"{errs} (bound 1e-3, the card test's for T=1000); grid "
+          f"{k.last_round_grid}")
+    check(max(errs) < 1e-3, f"taa_round m=8 T=1000: {errs}")
     return worst
 
 
@@ -447,7 +481,8 @@ def model_cases():
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import flash_attention, flash_decode, ops, ref
+    from repro_torch.kernels import (flash_attention, flash_decode, ops, ref,
+                                     ssd_scan)
 
     rng = np.random.default_rng(SEED + 4)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -546,8 +581,12 @@ def model_cases():
     dt = F.softplus(t(b, s, h))
     A = -torch.exp(t(h, scale=0.3))
     Bm, Cm = t(b, s, n, scale=0.5), t(b, s, n, scale=0.5)
+    plan = ssd_scan.chunk_plan(s)
+    q, nc = plan["chunk"], plan["chunks"]
     cases.append(dict(
-        kernel="ssd_scan", expect={"ssd_scan": 1},
+        kernel="ssd_scan", expect=plan["launches"],
+        path=f"chunked, internal chunk {q} ({nc} chunks), launches per call "
+             f"{plan['launches']}",
         source="configs/mamba2_1_3b.py",
         label=f"mamba2-1.3b SSD, f32, chunk 256 (b={b} s={s} h={h} p={p} "
               f"n={n})",
@@ -556,7 +595,14 @@ def model_cases():
         tol=1e-4, rel=True,
         nbytes=4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n
                     + b * h * p * n),
-        ops=5 * b * s * h * p * n, matmul_dtype=None))
+        # the chunked form's products: C B^T once per (b, chunk), the
+        # causal W x, the local state and the inter-chunk output per (b, h,
+        # chunk); three TF32 products each (the 3xTF32 split)
+        ops=3 * (b * nc * 2 * q * q * n
+                 + b * h * nc * (q * (q + 1) * p + 2 * q * p * n)
+                 + b * h * (nc - 1) * 2 * q * p * n),
+        # the earlier per-step recurrence's float32 operations
+        step_ops=5 * b * s * h * p * n, matmul_dtype="tf32"))
 
     for dtype in (f32, bf16):
         B, S, C = 2, 4096, 2560
@@ -577,18 +623,26 @@ def model_cases():
 
 def case_bound(case):
     """Least time (ms) for a case: its bytes over HBM bandwidth, and its
-    operations over the card's peak for their type — the bf16 tensor-core
-    rate for attention's products on bf16 inputs, the float32 rate of the
-    CUDA cores otherwise (float32 products, and the scans, which are no
-    matrix products); the larger, and which bounds it."""
+    operations over the card's peak for the unit that runs them — the bf16
+    tensor-core rate for attention's products on bf16 inputs, the TF32
+    tensor-core rate for the SSD scan's chunked products (three a product
+    in 3xTF32), the float32 rate of the CUDA cores otherwise (float32
+    products, the RG-LRU scan); the larger, and which bounds it.  For the
+    SSD scan also the earlier per-step recurrence's float32 bound, which
+    the chunked design no longer obeys (``step_bound_ms``)."""
     import torch
 
     t_bytes = case["nbytes"] / HBM_BYTES_PER_S * 1e3
-    peak = BF16_TC_FLOPS_PER_S if case["matmul_dtype"] == torch.bfloat16 \
-        else F32_FLOPS_PER_S
+    peak = {torch.bfloat16: BF16_TC_FLOPS_PER_S,
+            "tf32": TF32_TC_FLOPS_PER_S}.get(case["matmul_dtype"],
+                                             F32_FLOPS_PER_S)
     t_ops = case["ops"] / peak * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    out = dict(bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    if "step_ops" in case:
+        out["step_bound_ms"] = max(
+            t_bytes, case["step_ops"] / F32_FLOPS_PER_S * 1e3)
+    return out
 
 
 def drive_model_kernels(cases):
@@ -640,8 +694,14 @@ def check_model_kernels(cases, outs):
         err = max(e[1] for e in errs)
         case["max_abs_err"] = err_abs
         print(f"{case['label']}: {'rel' if case['rel'] else 'max abs'} err "
-              f"{err} (bound {case['tol']}), max abs {err_abs}")
+              f"{err} (bound {case['tol']}), max abs {err_abs}; two runs bit "
+              f"for bit")
         check(err < case["tol"], f"{case['label']}: {err} >= {case['tol']}")
+        again = case["run"]()
+        for o, a in zip(out if isinstance(out, tuple) else (out,),
+                        again if isinstance(again, tuple) else (again,)):
+            check(torch.equal(o, a), f"{case['label']}: two runs differ")
+        del again
         worst[case["kernel"]] = max(worst.get(case["kernel"], 0.0), err_abs)
         del want
     return worst
@@ -680,11 +740,13 @@ def time_model_kernels(cases):
                     plain_device_ms=dev[1], library_device_ms=dev[2],
                     achieved_tflops=case["ops"] / t / 1e9,
                     achieved_tb_s=case["nbytes"] / t / 1e9)
+        step = f"; the per-step float32 bound {case['step_bound_ms']} ms " \
+            f"({case['step_ops']} flop)" if "step_bound_ms" in case else ""
         print(f"time {case['label']}: kernel {wall[0]} ms (device {dev[0]} "
               f"ms), plain {wall[1]} ms (device {dev[1]} ms), library "
               f"{wall[2]} ms (device {dev[2]} ms), bound {case['bound_ms']} ms"
               f" by {case['bound_by']} ({case['nbytes']} B, {case['ops']} "
-              f"flop); achieved {case['achieved_tflops']} TFLOP/s, "
+              f"flop){step}; achieved {case['achieved_tflops']} TFLOP/s, "
               f"{case['achieved_tb_s']} TB/s")
 
 
@@ -713,9 +775,13 @@ def main() -> int:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    ptxas: {line.strip()}")
-    for name in ("flash_attention_tc", "flash_decode"):
-        print(f"ptxas {name}: {ptxas_summary(libs[ROOT / SOURCES[name]])}")
-    check_sass(libs[ROOT / SOURCES["flash_attention_tc"]])
+    for name in ("flash_attention_tc", "flash_decode", "taa_round",
+                 "ssd_scan"):
+        print(f"ptxas {name} ({SOURCES[name]}): "
+              f"{ptxas_summary(libs[ROOT / SOURCES[name]])}")
+    check_sass(libs[ROOT / SOURCES["flash_attention_tc"]],
+               "flash_attention_tc", ("HGMMA", "UTMALDG"))
+    check_sass(libs[ROOT / SOURCES["ssd_scan"]], "ssd_scan", ("HMMA",))
 
     t1 = time.monotonic()
     errs = check_kernels()
@@ -750,17 +816,20 @@ def main() -> int:
             library_device_ms=t["library_device_ms"]))
     keys = ("label", "path", "ms", "device_ms", "plain_ms", "plain_device_ms",
             "library_ms", "library_device_ms", "bound_ms", "bound_by",
-            "nbytes", "ops", "achieved_tflops", "achieved_tb_s",
-            "max_abs_err", "tol")
+            "step_bound_ms", "nbytes", "ops", "achieved_tflops",
+            "achieved_tb_s", "max_abs_err", "tol")
     # "flash_attention" counts every attention launch, "flash_attention_tc"
     # those of the tensor-core kernel; "flash_decode" the split passes, with
-    # the combine passes beside them
+    # the combine passes beside them; "ssd_scan" the chunk passes, with the
+    # state passes beside them
     for name in ("flash_attention", "flash_attention_tc", "flash_decode",
                  "ssd_scan", "rglru_scan"):
         mine = [c for c in cases if c["kernel"] == name]
         c = mine[0]   # the row's numbers are its first case's; all in "cases"
         extra = {"combine_launches": launches["flash_decode_combine"]} \
-            if name == "flash_decode" else {}
+            if name == "flash_decode" else \
+            {"state_pass_launches": launches["ssd_state_pass"]} \
+            if name == "ssd_scan" else {}
         rows.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=launches[name], **extra,

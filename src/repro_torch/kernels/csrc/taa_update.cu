@@ -24,14 +24,33 @@
 //     the row's gamma in registers; masked-off rows copy x and never read
 //     the histories.
 //   * taa_round: the Pallas kernel relies on the TPU running its (2, T,
-//     d_blocks) grid in order so the Gram phase ends before the solve;
-//     CUDA does not order CTAs, so this kernel gives each lane ONE CTA that
-//     runs the Gram sweep (block reduction per row into shared G[T][m][m],
-//     u[T][m]), a __syncthreads, the T suffix/global-sum + ridge +
-//     pivot-free Gauss-Jordan solves (one thread per row), another
-//     __syncthreads, and the apply sweep.  One launch per round; the cost
-//     is one SM per lane, so it is slow at large T*D (a later change can
-//     split the sweeps over a cluster or a cooperative grid).
+//     d_blocks) grid in order so the Gram phase ends before the solve.
+//     CUDA does not order CTAs; an earlier version got the order by giving
+//     each lane ONE CTA, so 7.4 MB went through 2 of the 132 SMs (79x its
+//     bound).  This kernel is ONE cooperative launch
+//     (cudaLaunchCooperativeKernel) over (lane, row, 512-float D tile)
+//     tiles, as many CTAs as the card holds at once (occupancy x SMs) or
+//     as there are tiles; CTAs walk the tiles grid-stride.
+//       phase 0: each CTA loads its tiles of dF and R (rows with mask 0
+//         skip the loads), forms the m(m+1)/2 + m Gram partial sums, and
+//         reduces them in a fixed order (block_sum) into a float32 scratch
+//         partials (B, NV, T, tiles_per_row) in device memory: no
+//         shared-memory cap on T, and no float atomics;
+//       grid.sync() (cooperative_groups): the TPU's phase order;
+//       phase 1: each CTA reduces the partials of its row in a fixed
+//         order (the suffix over rows s >= t for taa, every row for aa and
+//         for aa+'s Gram), adds the ridge and solves the m x m system by
+//         pivot-free Gauss-Jordan.  Every CTA of a row solves it
+//         redundantly: they read the same partials in the same order, so
+//         they hold the same bits, and a second grid barrier (or a launch)
+//         is saved; guard rows get gamma = 0;
+//       phase 2: the apply on the same tiles.  The CTA's first tile of dF
+//         and R stays in registers across the barrier (phase 0 walks its
+//         tiles last to first), so the apply reads only x and dX again;
+//         further tiles re-read dF and R, from L2 at these sizes.
+//     A cooperative launch the card refuses returns its error and the
+//     wrapper raises: nothing falls back.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -42,8 +61,9 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxM = 8;
-constexpr size_t kDefaultSmem = 48 * 1024;
-constexpr size_t kMaxSmem = 227 * 1024;
+constexpr int kRoundVec = 2;                      // d's per thread a tile
+constexpr int kRoundTile = kThreads * kRoundVec;  // floats of D a tile
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -190,87 +210,162 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // --------------------------------------------------------------- taa_round
+// This thread's d's of tile j of row t of lane b: raw dF and R (not
+// weighted), zeros past D and on rows whose weight w is 0.
+template <typename T, int M>
+__device__ __forceinline__ void load_tile(const T* __restrict__ dF,
+                                          const T* __restrict__ R, float w,
+                                          int b, int t, int j, int Tn, int D,
+                                          float (&f)[M][kRoundVec],
+                                          float (&r)[kRoundVec]) {
+  const size_t row = ((size_t)b * Tn + t) * D;
+  const size_t hist = ((size_t)b * M * Tn + t) * D;
+  const size_t hist_stride = (size_t)Tn * D;
+#pragma unroll
+  for (int v = 0; v < kRoundVec; ++v) {
+    const int d = j * kRoundTile + v * kThreads + threadIdx.x;
+    const bool live = w != 0.f && d < D;
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+      f[i][v] = live ? to_f32(dF[hist + i * hist_stride + d]) : 0.f;
+    r[v] = live ? to_f32(R[row + d]) : 0.f;
+  }
+}
+
 // mode 0 = taa (suffix Gram, suffix rhs), 1 = aa (global, global),
-// 2 = aa+ (global Gram, suffix rhs).
+// 2 = aa+ (global Gram, suffix rhs).  part: (B, NV, Tn, tiles_row) scratch.
 template <typename T, int M>
 __global__ void __launch_bounds__(kThreads)
     round_kernel(const T* __restrict__ x, const T* __restrict__ R,
                  const T* __restrict__ dX, const T* __restrict__ dF,
                  const float* __restrict__ mask,
-                 const float* __restrict__ guard, T* __restrict__ out, int Tn,
-                 int D, int mode, float lam) {
+                 const float* __restrict__ guard, T* __restrict__ out,
+                 float* part, int B, int Tn, int D, int tiles_row, int mode,
+                 float lam) {
   constexpr int NG = M * (M + 1) / 2;
   constexpr int NV = NG + M;
-  extern __shared__ float smem[];  // G[Tn][M][M] | u[Tn][M] | gamma[Tn][M]
-  float* sG = smem;
-  float* su = sG + (size_t)Tn * M * M;
-  float* sgam = su + (size_t)Tn * M;
   __shared__ float scratch[kWarps * NV];
   __shared__ float total[NV];
-  const int b = blockIdx.x;
+  __shared__ float gam[M];
+  const int n_tiles = B * Tn * tiles_row;
+  // tiles of this CTA: blockIdx.x + k * gridDim.x, k < nk (the grid never
+  // exceeds the tiles, so nk >= 1)
+  const int nk = (n_tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
 
-  // phase 0: the Gram sweep, one deterministic block reduction per row
-  for (int t = 0; t < Tn; ++t) {
+  // phase 0: Gram partials, the CTA's tiles last to first so that the
+  // registers hold its first tile afterwards
+  float f[M][kRoundVec], r[kRoundVec];
+  for (int k = nk - 1; k >= 0; --k) {
+    const int tile = blockIdx.x + k * gridDim.x;
+    const int j = tile % tiles_row;
+    const int bt = tile / tiles_row;  // b * Tn + t
+    const int b = bt / Tn, t = bt % Tn;
+    const float w = mask[bt];
+    load_tile<T, M>(dF, R, w, b, t, j, Tn, D, f, r);
     float acc[NV];
-    gram_partials<T, M, NV>(dF, R, mask[b * Tn + t], b, t, Tn, D, acc);
-    block_sum<NV>(acc, scratch, total);
-    for (int k = threadIdx.x; k < M * M; k += kThreads) {
-      const int i = k / M, j = k % M;
-      sG[(size_t)t * M * M + k] = total[i <= j ? tri<M>(i, j) : tri<M>(j, i)];
-    }
-    for (int i = threadIdx.x; i < M; i += kThreads) su[t * M + i] = total[NG + i];
-  }
-  __syncthreads();
-
-  // phase 1: per-row reductions + ridge + pivot-free Gauss-Jordan
-  for (int t = threadIdx.x; t < Tn; t += kThreads) {
-    float A[M][M + 1];
 #pragma unroll
-    for (int i = 0; i < M; ++i)
+    for (int q = 0; q < NV; ++q) acc[q] = 0.f;
 #pragma unroll
-      for (int j = 0; j <= M; ++j) A[i][j] = 0.f;
-    const int g_lo = mode == 0 ? t : 0;
-    const int u_lo = mode == 1 ? 0 : t;
-    for (int s = g_lo; s < Tn; ++s)
+    for (int v = 0; v < kRoundVec; ++v) {
+      const float rw = r[v] * w;
 #pragma unroll
-      for (int i = 0; i < M; ++i)
+      for (int i = 0; i < M; ++i) {
+        const float fi = f[i][v] * w;
 #pragma unroll
-        for (int j = 0; j < M; ++j) A[i][j] += sG[(size_t)s * M * M + i * M + j];
-    for (int s = u_lo; s < Tn; ++s)
-#pragma unroll
-      for (int i = 0; i < M; ++i) A[i][M] += su[s * M + i];
-#pragma unroll
-    for (int i = 0; i < M; ++i) A[i][i] += lam;
-#pragma unroll
-    for (int k = 0; k < M; ++k) {
-      float piv[M + 1];
-#pragma unroll
-      for (int c = 0; c <= M; ++c) piv[c] = A[k][c] / A[k][k];
-#pragma unroll
-      for (int r = 0; r < M; ++r) {
-        const float f = A[r][k];
-#pragma unroll
-        for (int c = 0; c <= M; ++c) A[r][c] = r == k ? piv[c] : A[r][c] - f * piv[c];
+        for (int jj = i; jj < M; ++jj) acc[tri<M>(i, jj)] += fi * (f[jj][v] * w);
+        acc[NG + i] += fi * rw;
       }
     }
-    const bool zero = guard[b * Tn + t] > 0.f;
-#pragma unroll
-    for (int i = 0; i < M; ++i) sgam[t * M + i] = zero ? 0.f : A[i][M];
+    block_sum<NV>(acc, scratch, total);
+    for (int q = threadIdx.x; q < NV; q += kThreads)
+      part[(((size_t)b * NV + q) * Tn + t) * tiles_row + j] = total[q];
   }
-  __syncthreads();
 
-  // phase 2: the apply sweep
-  for (int t = 0; t < Tn; ++t) {
-    const size_t row = ((size_t)b * Tn + t) * D;
-    if (!(mask[b * Tn + t] > 0.f)) {
-      for (int d = threadIdx.x; d < D; d += kThreads) out[row + d] = x[row + d];
+  cooperative_groups::this_grid().sync();
+
+  // phases 1 and 2: per tile, its row's solve (once per run of tiles of
+  // one row), then the apply
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  int solved = -1;
+  for (int k = 0; k < nk; ++k) {
+    const int tile = blockIdx.x + k * gridDim.x;
+    const int j = tile % tiles_row;
+    const int bt = tile / tiles_row;
+    const int b = bt / Tn, t = bt % Tn;
+    const float w = mask[bt];
+    const size_t row = (size_t)bt * D;
+    if (!(w > 0.f)) {  // uniform over the CTA: the row copies x
+#pragma unroll
+      for (int v = 0; v < kRoundVec; ++v) {
+        const int d = j * kRoundTile + v * kThreads + threadIdx.x;
+        if (d < D) out[row + d] = x[row + d];
+      }
       continue;
     }
+    if (bt != solved) {
+      // fixed-order reduction of the row's partials: warp per value, lanes
+      // stride over (row s >= lo, tile) in order, then an xor tree
+      for (int q = warp; q < NV; q += kWarps) {
+        const int lo = mode == 0 || (mode == 2 && q >= NG) ? t : 0;
+        const float* src = part + (((size_t)b * NV + q) * Tn + lo) * tiles_row;
+        const int count = (Tn - lo) * tiles_row;
+        float sum = 0.f;
+        for (int idx = lane; idx < count; idx += 32) sum += __ldcg(src + idx);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        if (lane == 0) total[q] = sum;
+      }
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        float A[M][M + 1];
+#pragma unroll
+        for (int i = 0; i < M; ++i) {
+#pragma unroll
+          for (int c = 0; c < M; ++c)
+            A[i][c] = total[i <= c ? tri<M>(i, c) : tri<M>(c, i)];
+          A[i][i] += lam;
+          A[i][M] = total[NG + i];
+        }
+#pragma unroll
+        for (int kk = 0; kk < M; ++kk) {
+          float piv[M + 1];
+#pragma unroll
+          for (int c = 0; c <= M; ++c) piv[c] = A[kk][c] / A[kk][kk];
+#pragma unroll
+          for (int rr = 0; rr < M; ++rr) {
+            const float fac = A[rr][kk];
+#pragma unroll
+            for (int c = 0; c <= M; ++c)
+              A[rr][c] = rr == kk ? piv[c] : A[rr][c] - fac * piv[c];
+          }
+        }
+        const bool zero = guard[bt] > 0.f;
+#pragma unroll
+        for (int i = 0; i < M; ++i) gam[i] = zero ? 0.f : A[i][M];
+      }
+      __syncthreads();
+      solved = bt;
+    }
+    if (k > 0) load_tile<T, M>(dF, R, w, b, t, j, Tn, D, f, r);
     float g[M];
 #pragma unroll
-    for (int j = 0; j < M; ++j) g[j] = sgam[t * M + j];
-    for (int d = threadIdx.x; d < D; d += kThreads)
-      out[row + d] = from_f32<T>(apply_one<T, M>(x, R, dX, dF, g, b, t, Tn, D, d));
+    for (int i = 0; i < M; ++i) g[i] = gam[i];
+    const size_t hist = ((size_t)b * M * Tn + t) * D;
+    const size_t hist_stride = (size_t)Tn * D;
+#pragma unroll
+    for (int v = 0; v < kRoundVec; ++v) {
+      const int d = j * kRoundTile + v * kThreads + threadIdx.x;
+      if (d < D) {
+        float corr = 0.f;
+#pragma unroll
+        for (int i = 0; i < M; ++i)
+          corr += g[i] * (to_f32(dX[hist + i * hist_stride + d]) + f[i][v]);
+        out[row + d] = from_f32<T>(to_f32(x[row + d]) + r[v] - corr);
+      }
+    }
+    __syncthreads();  // gam and total are reused by the next tile's solve
   }
 }
 
@@ -298,25 +393,48 @@ cudaError_t apply_impl(const void* x, const void* R, const void* dX,
   return cudaGetLastError();
 }
 
+// info[0..3) <- CTAs launched, tiles, CTAs the card holds at once.
 template <typename T, int M>
 cudaError_t round_impl(const void* x, const void* R, const void* dX,
                        const void* dF, const void* mask, const void* guard,
-                       void* out, int B, int Tn, int D, int mode, float lam,
-                       cudaStream_t s) {
-  const size_t smem = (size_t)Tn * (M * M + 2 * M) * sizeof(float);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  if (smem > kDefaultSmem) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        round_kernel<T, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+                       void* out, void* part, int* info, int B, int Tn, int D,
+                       int mode, float lam, cudaStream_t s) {
+  static int resident[kMaxDevices] = {};  // per device, per instantiation
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int coop = 0, sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
     if (e != cudaSuccess) return e;
+    if (!coop) return cudaErrorNotSupported;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, round_kernel<T, M>, kThreads, 0);
+    if (e != cudaSuccess) return e;
+    resident[dev] = sms * per_sm;
   }
-  round_kernel<T, M><<<B, kThreads, smem, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(R),
-      static_cast<const T*>(dX), static_cast<const T*>(dF),
-      static_cast<const float*>(mask), static_cast<const float*>(guard),
-      static_cast<T*>(out), Tn, D, mode, lam);
-  return cudaGetLastError();
+  int tiles_row = (D + kRoundTile - 1) / kRoundTile;
+  const long long tiles = (long long)B * Tn * tiles_row;
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int grid = static_cast<int>(tiles < resident[dev] ? tiles : resident[dev]);
+  info[0] = grid;
+  info[1] = static_cast<int>(tiles);
+  info[2] = resident[dev];
+  const T* xp = static_cast<const T*>(x);
+  const T* rp = static_cast<const T*>(R);
+  const T* dxp = static_cast<const T*>(dX);
+  const T* dfp = static_cast<const T*>(dF);
+  const float* mp = static_cast<const float*>(mask);
+  const float* gp = static_cast<const float*>(guard);
+  T* op = static_cast<T*>(out);
+  float* pp = static_cast<float*>(part);
+  void* args[] = {&xp, &rp, &dxp, &dfp, &mp, &gp, &op, &pp,
+                  &B, &Tn, &D, &tiles_row, &mode, &lam};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(round_kernel<T, M>),
+                                     dim3(grid), dim3(kThreads), args, 0, s);
 }
 
 #define TAA_M_CASES(CALL) \
@@ -368,11 +486,12 @@ cudaError_t apply_dispatch(const void* x, const void* R, const void* dX,
 template <typename T>
 cudaError_t round_dispatch(const void* x, const void* R, const void* dX,
                            const void* dF, const void* mask, const void* guard,
-                           void* out, int B, int m, int Tn, int D, int mode,
-                           float lam, cudaStream_t s) {
-#define CALL(MM)                                                          \
-  return round_impl<T, MM>(x, R, dX, dF, mask, guard, out, B, Tn, D, mode, \
-                           lam, s)
+                           void* out, void* part, int* info, int B, int m,
+                           int Tn, int D, int mode, float lam,
+                           cudaStream_t s) {
+#define CALL(MM)                                                      \
+  return round_impl<T, MM>(x, R, dX, dF, mask, guard, out, part, info, B, \
+                           Tn, D, mode, lam, s)
   switch (m) {
     TAA_M_CASES(CALL)
     default:
@@ -418,20 +537,24 @@ int taa_apply_launch(const void* x, const void* R, const void* dX,
                                                     out, B, m, Tn, D, s);
 }
 
+// part: float32 scratch (B, m(m+1)/2 + m, Tn, ceil(D / 512)); info: 3 ints
+// out (CTAs launched, tiles, CTAs co-resident).
 int taa_round_launch(const void* x, const void* R, const void* dX,
                      const void* dF, const void* mask, const void* guard,
-                     void* out, int B, int m, int Tn, int D, int dtype,
-                     int mode, float lam, int device, void* stream) {
+                     void* out, void* part, int* info, int B, int m, int Tn,
+                     int D, int dtype, int mode, float lam, int device,
+                     void* stream) {
   if (bad_shape(B, m, Tn, D, dtype) || mode < 0 || mode > 2)
     return cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? round_dispatch<float>(x, R, dX, dF, mask, guard, out, B,
-                                            m, Tn, D, mode, lam, s)
+  return dtype == 0 ? round_dispatch<float>(x, R, dX, dF, mask, guard, out,
+                                            part, info, B, m, Tn, D, mode, lam,
+                                            s)
                     : round_dispatch<__nv_bfloat16>(x, R, dX, dF, mask, guard,
-                                                    out, B, m, Tn, D, mode,
-                                                    lam, s);
+                                                    out, part, info, B, m, Tn,
+                                                    D, mode, lam, s);
 }
 
 }  // extern "C"

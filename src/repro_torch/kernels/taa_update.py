@@ -8,10 +8,12 @@ They replace the Pallas TPU kernels of ``repro/kernels/taa_update.py``:
              (w dF_t)(w R_t)                      [replaces taa_gram]
   taa_apply  x_t + R_t - (dX_t + dF_t)^T gamma_t on rows with mask > 0
                                                    [replaces taa_apply]
-  taa_round  the whole round in one launch: Gram sweep, suffix (taa) /
+  taa_round  the whole round in one cooperative launch over (lane, row,
+             D-tile) tiles: Gram partials, a grid barrier, suffix (taa) /
              global (aa; aa+ Gram only) sums + ridge, pivot-free
              Gauss-Jordan solves, guard rows gamma = 0, apply
                                                    [replaces taa_round]
+             (:func:`round_plan` gives its tiles and grid)
 
 Every kernel takes the lane axis natively: dF (B, m, T, D), R (B, T, D),
 mask (B, T), gamma (B, T, m); one launch serves every lane of an engine
@@ -39,6 +41,8 @@ from repro_torch.kernels.build import BUILD_DIR, NVCC_FLAGS  # noqa: F401
 
 SOURCE = _build.CSRC / "taa_update.cu"
 MAX_M = 8
+#: floats of D in one tile of taa_round (256 threads x 2; ``kRoundTile``)
+ROUND_TILE = 512
 MODES = {"taa": 0, "aa": 1, "aa+": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -47,9 +51,38 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches: Dict[str, int] = {"taa_gram": 0, "taa_apply": 0, "taa_round": 0}
 
 
+#: taa_round's grid at its last launch: CTAs launched, tiles, and the CTAs
+#: the card holds at once for that kernel (from ``round_plan`` and the
+#: launcher's occupancy query)
+last_round_grid: Dict[str, int] = {}
+
+
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def round_partials(B: int, m: int, T: int, D: int) -> Tuple[int, ...]:
+    """Shape of taa_round's float32 scratch (B, NV, T, tiles_per_row): per
+    tile, NV = m(m+1)/2 Gram entries of G and m of u."""
+    return (B, m * (m + 1) // 2 + m, T, -(-D // ROUND_TILE))
+
+
+def round_plan(B: int, m: int, T: int, D: int, co_resident: int) -> dict:
+    """taa_round's cooperative grid: (lane, row, D-tile) tiles of
+    ``ROUND_TILE`` floats, tile id ((b T + t) tiles_per_row + j); as many
+    CTAs as the card holds at once (``co_resident``) or as there are tiles,
+    whichever is fewer, each walking the tiles grid-stride (CTA c takes c,
+    c + ctas, ...).  ``partials`` is the float32 scratch (B, NV, T,
+    tiles_per_row) the wrapper allocates."""
+    if min(B, m, T, D) < 1 or co_resident < 1:
+        raise ValueError(f"taa_round: empty shape or grid {(B, m, T, D)}, "
+                         f"{co_resident}")
+    partials = round_partials(B, m, T, D)
+    tiles = B * T * partials[-1]
+    return dict(tile=ROUND_TILE, tiles_per_row=partials[-1], tiles=tiles,
+                ctas=min(tiles, co_resident), co_resident=co_resident,
+                partials=partials)
 
 
 def library_path() -> Path:
@@ -62,8 +95,8 @@ def _lib() -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.taa_gram_launch.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
     lib.taa_apply_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, P]
-    lib.taa_round_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, F,
-                                     I, P]
+    lib.taa_round_launch.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                                     I, F, I, P]
     for fn in (lib.taa_gram_launch, lib.taa_apply_launch,
                lib.taa_round_launch):
         fn.restype = I
@@ -147,9 +180,10 @@ def taa_apply(x, R, dX, dF, gamma, mask):
 
 def taa_round(x, R, dX, dF, mask, guard, *, mode: str = "taa",
               lam: float = 1e-8):
-    """The whole round in one launch.  x, R (B, T, D); dX, dF (B, m, T, D);
-    mask (B, T) window weights; guard (B, T) — rows > 0 get gamma = 0
-    (Theorem 3.6 safeguard; zeros for none).  -> (B, T, D) in x's dtype."""
+    """The whole round in one cooperative launch.  x, R (B, T, D); dX, dF
+    (B, m, T, D); mask (B, T) window weights; guard (B, T) — rows > 0 get
+    gamma = 0 (Theorem 3.6 safeguard; zeros for none).  -> (B, T, D) in
+    x's dtype.  Any T: the Gram partials live in a device scratch."""
     if mode not in MODES:
         raise ValueError(f"taa_round: unknown mode {mode!r}")
     squeeze, (dX, dF, x, R, mask, guard) = _lanes(dX, dF, x, R, mask, guard)
@@ -157,11 +191,16 @@ def taa_round(x, R, dX, dF, mask, guard, *, mode: str = "taa",
     mask, guard = _f32(mask), _f32(guard)
     B, m, T, D = _check("taa_round", (dF, dX), (x, R), (mask, guard))
     out = torch.empty_like(x)
+    part = torch.empty(round_partials(B, m, T, D), dtype=torch.float32,
+                       device=x.device)
+    info = (ctypes.c_int * 3)()
     err = _lib().taa_round_launch(
         x.data_ptr(), R.data_ptr(), dX.data_ptr(), dF.data_ptr(),
-        mask.data_ptr(), guard.data_ptr(), out.data_ptr(), B, m, T, D,
-        _DTYPES[x.dtype], MODES[mode], float(lam), x.device.index or 0,
-        _build.stream_of(x))
+        mask.data_ptr(), guard.data_ptr(), out.data_ptr(), part.data_ptr(),
+        info, B, m, T, D, _DTYPES[x.dtype], MODES[mode], float(lam),
+        x.device.index or 0, _build.stream_of(x))
     _build.raise_on(err, "taa_round")
     launches["taa_round"] += 1
+    last_round_grid.update(ctas=info[0], tiles=info[1],
+                           co_resident=info[2])
     return out[0] if squeeze else out

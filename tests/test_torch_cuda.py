@@ -92,17 +92,40 @@ def test_gram_is_deterministic_and_unbatched_shapes_work(cuda):
 
 @pytest.mark.gpu
 def test_round_handles_large_T_in_dynamic_shared_memory(cuda):
-    # T=1000, m=8: 1000 * (64 + 16) * 4 B = 320 KB > 227 KB -> refused
-    x, R, dX, dF, mask, guard, _ = _inputs(torch.float32, cuda, B=1, m=3,
-                                           T=1000, D=64)
-    # T=1000, m=3: 60 KB of shared memory, above the 48 KB default
-    out = k.taa_round(x, R, dX, dF, mask, guard, mode="taa", lam=1e-6)
-    want = ref.taa_round_ref(x, R, dX, dF, mask, guard, mode="taa", lam=1e-6)
-    assert _err(out, want) < 1e-3
-    x, R, dX, dF, mask, guard, _ = _inputs(torch.float32, cuda, B=1, m=8,
-                                           T=1000, D=64)
-    with pytest.raises(RuntimeError, match="taa_round launch failed"):
-        k.taa_round(x, R, dX, dF, mask, guard)
+    """Any T: the Gram partials live in a device scratch, not in shared
+    memory.  T=1000 with m=3 (60 KB of G and u) and with m=8 (320 KB, more
+    than a block's shared memory, which an earlier one-CTA-per-lane design
+    refused) both agree with the plain round."""
+    for m in (3, 8):
+        x, R, dX, dF, mask, guard, _ = _inputs(torch.float32, cuda, B=1, m=m,
+                                               T=1000, D=64)
+        for mode in MODES:
+            out = k.taa_round(x, R, dX, dF, mask, guard, mode=mode, lam=1e-6)
+            want = ref.taa_round_ref(x, R, dX, dF, mask, guard, mode=mode,
+                                     lam=1e-6)
+            assert _err(out, want) < 1e-3, (m, mode)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_round_is_one_cooperative_launch_and_deterministic(mode, dtype,
+                                                           cuda):
+    """One launch per call, over more CTAs than lanes (the grid of
+    ``round_plan`` on this card), and two runs give the same bits (no
+    float atomics; every CTA of a row reduces its partials in one order)."""
+    x, R, dX, dF, mask, guard, _ = _inputs(dtype, cuda)
+    k.reset_launches()
+    first = k.taa_round(x, R, dX, dF, mask, guard, mode=mode, lam=1e-6)
+    assert k.launches == {"taa_gram": 0, "taa_apply": 0, "taa_round": 1}
+    grid = dict(k.last_round_grid)
+    second = k.taa_round(x, R, dX, dF, mask, guard, mode=mode, lam=1e-6)
+    assert k.launches["taa_round"] == 2
+    assert torch.equal(first, second)
+    B, m, T, D = dF.shape
+    plan = k.round_plan(B, m, T, D, grid["co_resident"])
+    assert grid["ctas"] == plan["ctas"] > B
+    assert grid["tiles"] == plan["tiles"]
 
 
 @pytest.mark.gpu

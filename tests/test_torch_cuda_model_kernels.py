@@ -114,6 +114,28 @@ def test_ssd_scan_matches_plain(shape, cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 300, 5, 64, 128), (2, 300, 5, 20, 36),
+                                   (1, 129, 3, 50, 100), (2, 2048, 4, 64, 128)])
+def test_ssd_scan_chunked_paths_match_plain(shape, cuda):
+    """The chunked kernel across several chunks with a padded last one, a
+    head count that is no multiple of the chunk kernel's 4 heads, both the
+    16-byte (p, n multiples of 4) and the 4-byte staging, against the plain
+    scan; the launches of ``chunk_plan``."""
+    b, s, h, p, n = shape
+    rng = np.random.default_rng(7)
+    x = _t(rng, (b, s, h, p), cuda, scale=0.5)
+    dt = torch.nn.functional.softplus(_t(rng, (b, s, h), cuda))
+    A = -torch.exp(_t(rng, (h,), cuda, scale=0.3))
+    B, C = (_t(rng, (b, s, n), cuda, scale=0.5) for _ in range(2))
+    ssd.reset_launches()
+    y, fs = ssd.ssd_scan(x, dt, A, B, C)
+    assert ssd.launches == ssd.chunk_plan(s)["launches"]
+    yr, fsr = ref.ssd_ref(x, dt, A, B, C)
+    assert _err(y, yr) / float(yr.abs().max()) < 1e-4
+    assert _err(fs, fsr) / float(fsr.abs().max()) < 1e-4
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(2, 512, 256), (1, 1000, 300), (3, 17, 40),
                                    (2, 4096, 64)])
@@ -132,7 +154,8 @@ def test_kernels_repeat_bit_for_bit_and_ops_count_launches(cuda):
     """No kernel uses float atomics: two runs give the same bits.  Each ops
     entry point on a CUDA tensor launches its kernel once (the decode's
     split pass and, with more than one split, its combine; attention's
-    tensor-core kernel for bf16, counted also under "flash_attention")."""
+    tensor-core kernel for bf16, counted also under "flash_attention"; the
+    SSD scan's chunk pass and its state pass)."""
     rng = np.random.default_rng(6)
     q, k, v = (_t(rng, (1, 2, 150, 72), cuda) for _ in range(3))
     qb, kb, vb = (_t(rng, (1, 2, 300, 128), cuda, torch.bfloat16)
@@ -154,7 +177,8 @@ def test_kernels_repeat_bit_for_bit_and_ops_count_launches(cuda):
          {"flash_attention": 2, "flash_attention_tc": 2}),
         (fd, lambda: ops.decode_attention(qd, kc, vc, lengths),
          {"flash_decode": 2, "flash_decode_combine": 2}),
-        (ssd, lambda: ops.ssd(x, dt, A, B, C), {"ssd_scan": 2}),
+        (ssd, lambda: ops.ssd(x, dt, A, B, C),
+         {"ssd_scan": 2, "ssd_state_pass": 2}),
         (rg, lambda: ops.rglru(a, bb), {"rglru_scan": 2}),
     ]
     for mod, fn, want in calls:
