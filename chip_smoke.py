@@ -9,9 +9,9 @@ is not 0):
 1. device and build: the card's name and power limit from nvidia-smi, then
    every kernel library compiled from ``src/repro_torch/kernels/csrc`` (one
    nvcc per source, all started together; build seconds and the compiler's
-   register report, summed for the four redesigned kernels); the tensor-core
-   attention kernel's SASS must hold HGMMA and UTMALDG instructions, the
-   SSD scan's HMMA (where cuobjdump is found);
+   register report, summed for the redesigned kernels); the wgmma attention
+   kernel's SASS must hold HGMMA and UTMALDG instructions, the TF32
+   attention kernel's and the SSD scan's HMMA (where cuobjdump is found);
 2. each TAA-update kernel against its plain PyTorch version on the card, at the main
    path's shapes (B=2 lanes, m=3, T=25, D=4096 = 256 tokens x latent 16),
    float32 and bfloat16, a ragged D=4000, every round mode with a nonzero
@@ -33,14 +33,16 @@ is not 0):
    ``repro_torch.kernels.ops`` (``flash_decode`` for int8) at the full
    widths of DiT-XL, qwen3-0.6b, recurrentgemma-2b and mamba2-1.3b, every
    launch count set to 0 just before and checked equal to what the calls
-   should launch just after (the tensor-core attention kernel for bf16, the
-   CUDA-core one for float32; the decode's split pass, and its combine pass
-   where the cache is split; the SSD scan's chunk and state-pass launches);
-   each case's path, split count or chunk printed;
+   should launch just after (the wgmma attention kernel for bf16, the TF32
+   one for float32; the decode's split pass, and its combine pass where the
+   cache is split; the SSD scan's chunk and state-pass launches); each
+   case's path, split count, chunk or tile plan printed (the RG-LRU scan's
+   tiles, segments, chains and cooperative grid);
    each output against its plain version on the same inputs (the JAX
    tests' bounds) and run again bit for bit; then kernel / plain / library
-   times and achieved
-   TFLOP/s and TB/s beside the least time the card could take.
+   times and achieved TFLOP/s and TB/s beside the least time the card could
+   take (for the TF32 attention and the SSD scan also the float32 bound of
+   their earlier CUDA-core designs).
 
 Then one JSON line of per-kernel numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Without CUDA, or run from a directory
@@ -147,9 +149,9 @@ def ptxas_summary(lib) -> str:
 
 def check_sass(lib, name: str, ops) -> None:
     """A tensor-core kernel's SASS holds the instructions its design rests
-    on: warpgroup MMAs (HGMMA) and TMA loads (UTMALDG) for the attention
-    kernel, mma.sync (HMMA) for the SSD scan.  Checked where cuobjdump is
-    found."""
+    on: warpgroup MMAs (HGMMA) and TMA loads (UTMALDG) for the wgmma
+    attention kernel, mma.sync (HMMA) for the TF32 attention kernel and the
+    SSD scan.  Checked where cuobjdump is found."""
     import shutil
 
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -482,7 +484,7 @@ def model_cases():
     import torch.nn.functional as F
 
     from repro_torch.kernels import (flash_attention, flash_decode, ops, ref,
-                                     ssd_scan)
+                                     rglru_scan, ssd_scan)
 
     rng = np.random.default_rng(SEED + 4)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -504,6 +506,7 @@ def model_cases():
         if window:
             live &= kp > qp - window
         mask = live.cuda()
+        n_live = int(live.sum())
         lib = (lambda: F.scaled_dot_product_attention(q, k, v)) \
             if not causal and not window else \
             (lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)) \
@@ -512,6 +515,11 @@ def model_cases():
         e = q.element_size()
         path = flash_attention.attention_path(dtype, D)
         tc = path == "tensor_cores"
+        # the TF32 kernel on float32: three TF32 products a product (the
+        # 3xTF32 split), beside the float32 bound of the CUDA-core kernel it
+        # replaced
+        tf32 = {} if tc or dtype != f32 else dict(
+            f32_ops=4 * D * B * H * n_live, f32_what="CUDA-core float32")
         cases.append(dict(
             kernel="flash_attention_tc" if tc else "flash_attention",
             path=path, expect={"flash_attention": 1,
@@ -522,7 +530,8 @@ def model_cases():
                                             window=window),
             library=lib, tol=TOL[str(dtype).split(".")[-1]], rel=False,
             nbytes=(2 * B * H * S * D + 2 * B * H * T * D) * e,
-            ops=4 * D * B * H * int(live.sum()), matmul_dtype=dtype))
+            ops=4 * D * B * H * n_live * (3 if tf32 else 1),
+            matmul_dtype="tf32" if tf32 else dtype, **tf32))
 
     attention("dit-xl eps batch, non-causal, f32 (B=50 H=16 S=T=256 D=72)",
               "configs/dit_xl.py", 50, 16, 256, 256, 72, f32, False, 0)
@@ -602,22 +611,33 @@ def model_cases():
                  + b * h * nc * (q * (q + 1) * p + 2 * q * p * n)
                  + b * h * (nc - 1) * 2 * q * p * n),
         # the earlier per-step recurrence's float32 operations
-        step_ops=5 * b * s * h * p * n, matmul_dtype="tf32"))
+        f32_ops=5 * b * s * h * p * n, f32_what="per-step float32",
+        matmul_dtype="tf32"))
 
     for dtype in (f32, bf16):
         B, S, C = 2, 4096, 2560
         a = torch.sigmoid(t(B, S, C)).to(dtype)
         bb = t(B, S, C, scale=0.3, dtype=dtype)
-        cases.append(dict(
+        tp = rglru_scan.tile_plan(B, S, C, a.element_size())
+        case = dict(
             kernel="rglru_scan", expect={"rglru_scan": 1},
+            path=f"{tp['tiles']} tiles of {tp['steps']} steps x "
+                 f"{tp['channels']} channels ({tp['segments']} segments x "
+                 f"{tp['chains']} chains), one read of a and b",
             source="configs/recurrentgemma_2b.py",
             label=f"recurrentgemma-2b RG-LRU, {str(dtype).split('.')[-1]} "
                   f"(B={B} S={S} C={C})",
-            run=(lambda a=a, bb=bb: ops.rglru(a, bb)),
             plain=(lambda a=a, bb=bb: ref.rglru_ref(a, bb)), library=None,
             tol=1e-4 if dtype == f32 else 5e-2, rel=False,
             nbytes=3 * B * S * C * a.element_size(), ops=2 * B * S * C,
-            matmul_dtype=None))
+            matmul_dtype=None)
+
+        def run(a=a, bb=bb, case=case):
+            out = ops.rglru(a, bb)
+            case["grid"] = dict(rglru_scan.last_grid)
+            return out
+        case["run"] = run
+        cases.append(case)
     return cases
 
 
@@ -625,11 +645,12 @@ def case_bound(case):
     """Least time (ms) for a case: its bytes over HBM bandwidth, and its
     operations over the card's peak for the unit that runs them — the bf16
     tensor-core rate for attention's products on bf16 inputs, the TF32
-    tensor-core rate for the SSD scan's chunked products (three a product
-    in 3xTF32), the float32 rate of the CUDA cores otherwise (float32
-    products, the RG-LRU scan); the larger, and which bounds it.  For the
-    SSD scan also the earlier per-step recurrence's float32 bound, which
-    the chunked design no longer obeys (``step_bound_ms``)."""
+    tensor-core rate for float32 attention's and the SSD scan's products
+    (three a product in 3xTF32), the float32 rate of the CUDA cores
+    otherwise (the RG-LRU scan); the larger, and which bounds it.  For the
+    float32 attention and the SSD scan also the float32 bound of their
+    earlier CUDA-core designs, which the tensor-core ones no longer obey
+    (``f32_bound_ms``)."""
     import torch
 
     t_bytes = case["nbytes"] / HBM_BYTES_PER_S * 1e3
@@ -639,9 +660,9 @@ def case_bound(case):
     t_ops = case["ops"] / peak * 1e3
     out = dict(bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations")
-    if "step_ops" in case:
-        out["step_bound_ms"] = max(
-            t_bytes, case["step_ops"] / F32_FLOPS_PER_S * 1e3)
+    if "f32_ops" in case:
+        out["f32_bound_ms"] = max(
+            t_bytes, case["f32_ops"] / F32_FLOPS_PER_S * 1e3)
     return out
 
 
@@ -668,7 +689,9 @@ def drive_model_kernels(cases):
              for name in launches}
     for case in cases:
         if "path" in case:
-            print(f"{case['label']}: path {case['path']}")
+            grid = f"; cooperative grid {case['grid']}" if "grid" in case \
+                else ""
+            print(f"{case['label']}: path {case['path']}{grid}")
     print(f"model kernels: launches {launches} for calls {calls}")
     check(launches == calls, f"launches {launches} != calls {calls}")
     return outs, launches
@@ -740,8 +763,8 @@ def time_model_kernels(cases):
                     plain_device_ms=dev[1], library_device_ms=dev[2],
                     achieved_tflops=case["ops"] / t / 1e9,
                     achieved_tb_s=case["nbytes"] / t / 1e9)
-        step = f"; the per-step float32 bound {case['step_bound_ms']} ms " \
-            f"({case['step_ops']} flop)" if "step_bound_ms" in case else ""
+        step = f"; the {case['f32_what']} bound {case['f32_bound_ms']} ms " \
+            f"({case['f32_ops']} flop)" if "f32_bound_ms" in case else ""
         print(f"time {case['label']}: kernel {wall[0]} ms (device {dev[0]} "
               f"ms), plain {wall[1]} ms (device {dev[1]} ms), library "
               f"{wall[2]} ms (device {dev[2]} ms), bound {case['bound_ms']} ms"
@@ -775,12 +798,14 @@ def main() -> int:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    ptxas: {line.strip()}")
-    for name in ("flash_attention_tc", "flash_decode", "taa_round",
-                 "ssd_scan"):
+    for name in ("flash_attention", "flash_attention_tc", "flash_decode",
+                 "taa_round", "ssd_scan", "rglru_scan"):
         print(f"ptxas {name} ({SOURCES[name]}): "
               f"{ptxas_summary(libs[ROOT / SOURCES[name]])}")
     check_sass(libs[ROOT / SOURCES["flash_attention_tc"]],
                "flash_attention_tc", ("HGMMA", "UTMALDG"))
+    check_sass(libs[ROOT / SOURCES["flash_attention"]], "flash_attention",
+               ("HMMA",))
     check_sass(libs[ROOT / SOURCES["ssd_scan"]], "ssd_scan", ("HMMA",))
 
     t1 = time.monotonic()
@@ -816,7 +841,7 @@ def main() -> int:
             library_device_ms=t["library_device_ms"]))
     keys = ("label", "path", "ms", "device_ms", "plain_ms", "plain_device_ms",
             "library_ms", "library_device_ms", "bound_ms", "bound_by",
-            "step_bound_ms", "nbytes", "ops", "achieved_tflops",
+            "f32_bound_ms", "nbytes", "ops", "achieved_tflops",
             "achieved_tb_s", "max_abs_err", "tol")
     # "flash_attention" counts every attention launch, "flash_attention_tc"
     # those of the tensor-core kernel; "flash_decode" the split passes, with

@@ -5,9 +5,11 @@ version is :func:`repro_torch.kernels.ref.attention_ref`; this wrapper
 never calls it.
 
 Two kernels, chosen by dtype and head dim (:func:`attention_path`):
-bfloat16 rows of whole 16-byte vectors go to the tensor cores
-(``csrc/flash_attention_tc.cu``: wgmma + TMA), everything else to the
-CUDA cores in float32 (``csrc/flash_attention.cu``).
+bfloat16 rows of whole 16-byte vectors go to the tensor cores through
+wgmma + TMA (``csrc/flash_attention_tc.cu``), everything else (float32,
+and bfloat16 at other head dims) to the tensor cores through mma.sync in
+TF32, float32 operands split 3xTF32 (``csrc/flash_attention.cu``; its
+tiles in :func:`tf32_tiles`).
 """
 from __future__ import annotations
 
@@ -37,12 +39,20 @@ def reset_launches() -> None:
 
 
 def attention_path(dtype: torch.dtype, D: int) -> str:
-    """Which kernel a call takes: "tensor_cores" for bfloat16 whose rows are
-    whole 16-byte vectors (D % 8 == 0, as TMA needs), else "cuda_cores"
-    (float32, and bfloat16 at other D)."""
+    """Which kernel a call takes: "tensor_cores" (wgmma + TMA) for bfloat16
+    whose rows are whole 16-byte vectors (D % 8 == 0, as TMA needs), else
+    "tensor_cores_tf32" (mma.sync in TF32: float32, and bfloat16 at other
+    D)."""
     if dtype == torch.bfloat16 and D % 8 == 0:
         return "tensor_cores"
-    return "cuda_cores"
+    return "tensor_cores_tf32"
+
+
+def tf32_tiles(D: int) -> tuple:
+    """(query rows, keys) of a tile of the TF32 kernel at head dim ``D``:
+    4 warps of two 16-row m-tiles (128 queries) up to D = 72, of one (64)
+    above; 32 keys a K and V tile."""
+    return (128 if D <= 72 else 64), 32
 
 
 def live_key_tiles(qt: int, S: int, T: int, causal: bool, window: int, *,
@@ -50,8 +60,9 @@ def live_key_tiles(qt: int, S: int, T: int, causal: bool, window: int, *,
     """The key tiles (of ``bk`` keys) that query tile ``qt`` (of ``bq``
     rows) loads: those where some (query, key) pair survives the causal and
     window masks, with queries right-aligned (the TPU kernel's block-level
-    skip, flash_attention.py:46-54 of the JAX package).  The tensor-core
-    kernel computes the same range from the same arithmetic."""
+    skip, flash_attention.py:46-54 of the JAX package).  Both kernels
+    compute the same range from the same arithmetic, each with its own
+    tiles."""
     q_min = qt * bq + T - S
     q_max = min(qt * bq + bq, S) - 1 + T - S
     end = -(-T // bk)

@@ -138,8 +138,12 @@ def test_ssd_scan_chunked_paths_match_plain(shape, cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(2, 512, 256), (1, 1000, 300), (3, 17, 40),
-                                   (2, 4096, 64)])
+                                   (2, 4096, 64), (2, 999, 130),
+                                   (2, 4096, 2560)])
 def test_rglru_scan_matches_plain(dtype, shape, cuda):
+    """Ragged S and C (C not a multiple of a 16-byte vector takes the
+    element-wise loads), recurrentgemma-2b's width; the cooperative grid
+    walks ``tile_plan``'s tiles; two runs bit for bit."""
     rng = np.random.default_rng(5)
     a = torch.sigmoid(_t(rng, shape, cuda)).to(dtype)
     b = _t(rng, shape, cuda, dtype, scale=0.3)
@@ -147,6 +151,11 @@ def test_rglru_scan_matches_plain(dtype, shape, cuda):
     assert h.dtype == dtype
     assert _err(h, ref.rglru_ref(a, b)) < (5e-2 if dtype == torch.bfloat16
                                            else 1e-4)
+    plan = rg.tile_plan(*shape, a.element_size())
+    grid = dict(rg.last_grid)
+    assert grid["tiles"] == plan["tiles"]
+    assert grid["ctas"] == min(plan["tiles"], grid["co_resident"])
+    assert torch.equal(h, rg.rglru_scan_kernel(a, b))
 
 
 @pytest.mark.gpu
@@ -214,7 +223,39 @@ def test_flash_attention_tensor_cores_match_plain(d, s, t, causal, window,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d", [(torch.float32, d) for d in (
+    8, 37, 64, 72, 100, 128, 136, 256)] + [(torch.bfloat16, d)
+                                          for d in (4, 36, 100, 250)])
+@pytest.mark.parametrize("s,t,causal,window", [
+    (200, 200, True, 0),       # S, T not multiples of the 64-query tile
+    (100, 333, True, 0),       # S < T: right-aligned queries
+    (300, 300, False, 0),
+    (333, 333, True, 70),      # a window that kills whole key tiles
+    (64, 700, False, 150),     # window without causal, S < T
+])
+def test_flash_attention_tf32_matches_plain(dtype, d, s, t, causal, window,
+                                            cuda):
+    """The mma.sync TF32 kernel: float32 (3xTF32) at every head dim, odd
+    ones padded in shared memory; bf16 rows that are not whole 16-byte
+    vectors; one launch, two runs bit for bit."""
+    assert fa.attention_path(dtype, d) == "tensor_cores_tf32"
+    rng = np.random.default_rng(14)
+    q, k, v = (_t(rng, (2, 3, n, d), cuda, dtype) for n in (s, t, t))
+    fa.reset_launches()
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches == {"flash_attention": 1, "flash_attention_tc": 0}
+    assert out.dtype == dtype and out.shape == q.shape
+    want = ref.attention_ref(q, k, v, causal=causal, window=window)
+    assert _err(out, want) < TOL[dtype]
+    again = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.gpu
 def test_flash_attention_bf16_odd_head_dim_takes_cuda_cores(cuda):
+    """bf16 at D % 8 != 0 takes the mma.sync TF32 kernel (once the CUDA-core
+    one), not the wgmma one."""
     rng = np.random.default_rng(9)
     q, k, v = (_t(rng, (1, 2, 90, 100), cuda, torch.bfloat16)
                for _ in range(3))

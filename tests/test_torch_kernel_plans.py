@@ -3,11 +3,13 @@ decode cuts the cache (``flash_decode.split_plan``) and merges its ranges,
 which attention kernel a call takes (``flash_attention.attention_path``),
 which key tiles a query tile loads (``flash_attention.live_key_tiles``),
 how the fused TAA round tiles its cooperative grid
-(``taa_update.round_plan``) and how the SSD scan cuts the sequence into
-chunks (``ssd_scan.chunk_plan``).  The split decode, the tiled round and
-the chunked SSD scan (with its 3xTF32 products) are emulated in torch and
-held against the JAX package's references and Pallas kernels (interpret
-mode) on the same numpy inputs."""
+(``taa_update.round_plan``), how the SSD scan cuts the sequence into
+chunks (``ssd_scan.chunk_plan``) and how the RG-LRU scan cuts (B, S, C)
+into chained tiles (``rglru_scan.tile_plan``).  The split decode, the tiled
+round, the chunked SSD scan and the TF32 attention (with their 3xTF32
+products) and the chained RG-LRU scan are emulated in torch and held
+against the JAX package's references and Pallas kernels (interpret mode)
+on the same numpy inputs."""
 import math
 
 import jax.numpy as jnp
@@ -18,11 +20,14 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels import taa_update as jtaa
+from repro.kernels.flash_attention import flash_attention as jflash
+from repro.kernels.rglru_scan import rglru_scan_kernel as jrglru
 from repro.kernels.ssd_scan import ssd_scan as jssd
 from repro.models.attention import _dequantize_kv, _quantize_kv
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels import taa_update as taa
 from tests.test_torch_helpers import max_abs, normal, rel_err
@@ -158,7 +163,9 @@ def test_attention_path_bf16_whole_vectors_take_tensor_cores(d):
                                      (torch.bfloat16, 36)] +
                          [(torch.float32, d) for d in (40, 64, 72, 128, 256)])
 def test_attention_path_others_take_cuda_cores(dtype, d):
-    assert fa.attention_path(dtype, d) == "cuda_cores"
+    """float32, and bf16 rows that are not whole 16-byte vectors, take the
+    mma.sync TF32 kernel (once a CUDA-core kernel, hence the name)."""
+    assert fa.attention_path(dtype, d) == "tensor_cores_tf32"
 
 
 @pytest.mark.parametrize("s,t,causal,window,bk", [
@@ -484,3 +491,265 @@ def test_3xtf32_holds_the_bound_and_one_tf32_product_does_not():
     yr, fsr = jref.ssd_ref(*(jnp.asarray(a) for a in arrs))
     y, fs = chunked_ssd(*t)
     assert rel_err(y, yr) < 1e-4 and rel_err(fs, fsr) < 1e-4
+
+
+# --- K4 flash_attention: the TF32 kernel (float32 in 3xTF32) -----------------
+
+# the A fragment's k-index j of an 8-key step holds key PV_ORDER[j]: the
+# score accumulator's columns (2t, 2t + 1) taken as k-indices (t, t + 4)
+PV_ORDER = [0, 2, 4, 6, 1, 3, 5, 7]
+
+
+def tiled_tf32_attention(q, k, v, *, causal, window, form="3xtf32"):
+    """The TF32 kernel's attention in torch: query tiles and key tiles of
+    ``flash_attention.tf32_tiles``, only the key tiles of ``live_key_tiles``
+    loaded, the depth zero-padded to a multiple of 8; per key tile S = Q K^T,
+    the masks (-1e30; -inf past T), the online softmax in the log2 domain,
+    and O += P V with P's columns and V's rows in the fragments' permuted
+    order; out = O / max(l, 1e-30).  Products as ``matmul(form=...)``."""
+    f32 = torch.float32
+    B, H, S, D = q.shape
+    T = k.shape[2]
+    bq, bk = fa.tf32_tiles(D)
+    dp = -(-D // 8) * 8
+    pad = lambda x, rows: torch.nn.functional.pad(                # noqa: E731
+        x.to(f32), (0, dp - D, 0, rows - x.shape[2]))
+    nq, nk = -(-S // bq), -(-T // bk)
+    qs, ks, vs = pad(q, nq * bq), pad(k, nk * bk), pad(v, nk * bk)
+    scale = torch.tensor(math.log2(math.e), dtype=f32) / math.sqrt(D)
+    perm = torch.tensor([8 * (j // 8) + PV_ORDER[j % 8] for j in range(bk)])
+    out = torch.zeros(B, H, nq * bq, dp)
+    for qt in range(nq):
+        qtile = qs[:, :, qt * bq:(qt + 1) * bq]
+        qp = torch.arange(qt * bq, (qt + 1) * bq)[:, None] + (T - S)
+        m = torch.full((B, H, bq, 1), NEG_INF)
+        l = torch.zeros(B, H, bq, 1)
+        o = torch.zeros(B, H, bq, dp)
+        for kt in fa.live_key_tiles(qt, S, T, causal, window, bq=bq, bk=bk):
+            sl = slice(kt * bk, (kt + 1) * bk)
+            x = matmul(qtile, ks[:, :, sl].transpose(-1, -2), form) * scale
+            kp = torch.arange(kt * bk, (kt + 1) * bk)[None, :]
+            ok = torch.ones(bq, bk, dtype=torch.bool)
+            if causal:
+                ok &= kp <= qp
+            if window:
+                ok &= kp > qp - window
+            x = torch.where(ok, x, NEG_INF)
+            x = torch.where(kp >= T, -math.inf, x)
+            m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(x - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            o = o * alpha + matmul(p[..., perm], vs[:, :, sl][:, :, perm],
+                                   form)
+            m = m_new
+        out[:, :, qt * bq:(qt + 1) * bq] = o / torch.clamp(l, min=1e-30)
+    return out[:, :, :S, :D].to(q.dtype)
+
+
+def test_pv_fragment_takes_the_score_accumulator_as_it_lies():
+    """Lane by lane: the m16n8 score accumulator element e of lane (g, t)
+    sits at (row g + 8 (e >> 1), key 2t + (e & 1)); the P V A fragment
+    takes (e0, e2, e1, e3) as k-indices (t, t, t + 4, t + 4) of rows
+    (g, g + 8, g, g + 8), and B reads V's rows 2t, 2t + 1 for k-indices t,
+    t + 4.  So each A entry meets V's row of its own key, and every (row,
+    key) of the 16 x 8 block is used once."""
+    seen = np.zeros((16, 8), np.int64)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        acc = {e: (g + 8 * (e >> 1), 2 * t + (e & 1)) for e in range(4)}
+        frag = [(acc[0], t), (acc[2], t), (acc[1], t + 4), (acc[3], t + 4)]
+        for (row, key), kidx in frag:
+            assert PV_ORDER[kidx] == key         # B's row for this k-index
+            seen[row, key] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("s,t,d,causal,window,jblocks", [
+    (256, 256, 72, False, 0, (128, 128)),       # DiT-XL's shape, cut in B, H
+    (96, 320, 72, True, 0, (32, 64)),           # ragged S < T
+    (96, 320, 72, True, 100, (32, 64)),         # and a window
+    (96, 320, 72, False, 150, (32, 64)),        # window without causal
+    (64, 192, 136, True, 70, (64, 64)),         # D > 128: 32-key tiles
+    (100, 100, 37, True, 0, (100, 100)),        # odd D, padded to 40
+])
+def test_tiled_tf32_attention_matches_jax(s, t, d, causal, window, jblocks):
+    """Against the JAX attention_ref and the Pallas kernel in interpret mode
+    (its own tiles), within the JAX kernel tests' float32 bound 3e-5."""
+    q, k, v = normal(20, 1, 2, s, d), normal(21, 1, 2, t, d), \
+        normal(22, 1, 2, t, d)
+    got = tiled_tf32_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), causal=causal,
+                               window=window)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    want = jref.attention_ref(jq, jk, jv, causal=causal, window=window)
+    assert max_abs(got, want) < 3e-5
+    kern = jflash(jq, jk, jv, causal=causal, window=window, bq=jblocks[0],
+                  bk=jblocks[1], interpret=True)
+    assert max_abs(got, kern) < 3e-5
+
+
+def test_3xtf32_attention_holds_the_bound_and_one_tf32_product_does_not():
+    """At DiT-XL's attention shape per head (S = T = 256, D = 72; B = 1, H =
+    2), inputs from numpy seed 4: both products split 3xTF32 stay within
+    3e-5 of a float64 reference, as plain float32 does; one TF32 product
+    each misses it."""
+    rng = np.random.default_rng(4)
+    q, k, v = (rng.standard_normal((1, 2, 256, 72)).astype(np.float32)
+               for _ in range(3))
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    want = tref.attention_ref(*(a.double() for a in t), causal=False)
+    errs = {form: max_abs(tiled_tf32_attention(*t, causal=False, window=0,
+                                               form=form), want)
+            for form in ("f32", "3xtf32", "tf32")}
+    assert errs["f32"] < 3e-5 and errs["3xtf32"] < 3e-5, errs
+    assert errs["tf32"] > 3e-5, errs
+    got = tiled_tf32_attention(*t, causal=False, window=0)
+    jwant = jref.attention_ref(*(jnp.asarray(a) for a in (q, k, v)),
+                               causal=False)
+    assert max_abs(got, jwant) < 3e-5
+
+
+# --- K7 rglru_scan: chained tiles, one read of a and b ------------------------
+
+
+def chained_rglru(a, b, order=None, written=None):
+    """The chained kernel in torch, tile by tile: per tile 32 threads' maps
+    of 8 steps each (identity past S and C), a shuffle scan over them in the
+    kernel's tree, the chain h_end = A h_prev + B from the predecessor's
+    published state, the exclusive prefix applied to h_prev and the 8 steps
+    run again.  ``order``: the order tiles are taken up in (default the
+    segment-major ticket order); a tile whose predecessor has not published
+    waits (goes to the back).  ``written`` counts h's writes."""
+    f32 = torch.float32
+    B, S, C = a.shape
+    plan = rg.tile_plan(B, S, C, a.element_size())
+    cb, seg_len, steps = plan["channels"], plan["steps"], rg.SUB_STEPS
+    subs = seg_len // steps
+    chains = plan["chains"]
+    blocks = plan["channel_blocks"]
+    af = torch.ones(B, plan["segments"] * seg_len, blocks * cb)
+    bf = torch.zeros_like(af)
+    af[:, :S, :C], bf[:, :S, :C] = a.to(f32), b.to(f32)
+    h = torch.empty(B, S, C, dtype=a.dtype)
+    published = {}
+    todo = list(range(plan["tiles"])) if order is None else list(order)
+    assert sorted(todo) == list(range(plan["tiles"]))
+    while todo:
+        tile = todo.pop(0)
+        seg, chain = divmod(tile, chains)
+        if seg > 0 and tile - chains not in published:
+            todo.append(tile)
+            continue
+        bi, blk = divmod(chain, blocks)
+        ts = slice(seg * seg_len, (seg + 1) * seg_len)
+        cs = slice(blk * cb, (blk + 1) * cb)
+        at = af[bi, ts, cs].reshape(subs, steps, cb)
+        bt = bf[bi, ts, cs].reshape(subs, steps, cb)
+        A, Bv = torch.ones(subs, cb), torch.zeros(subs, cb)
+        for i in range(steps):
+            Bv = at[:, i] * Bv + bt[:, i]
+            A = A * at[:, i]
+        d = 1
+        while d < subs:                      # Hillis-Steele, lane = subseg
+            Au = torch.cat([torch.ones(d, cb), A[:-d]])
+            Bu = torch.cat([torch.zeros(d, cb), Bv[:-d]])
+            Bv, A = A * Bu + Bv, A * Au
+            d *= 2
+        exA = torch.cat([torch.ones(1, cb), A[:-1]])
+        exB = torch.cat([torch.zeros(1, cb), Bv[:-1]])
+        h_prev = published[tile - chains] if seg > 0 else torch.zeros(cb)
+        published[tile] = A[-1] * h_prev + Bv[-1]
+        hv = exA * h_prev + exB
+        out = torch.empty(subs, steps, cb)
+        for i in range(steps):
+            hv = at[:, i] * hv + bt[:, i]
+            out[:, i] = hv
+        out = out.reshape(seg_len, cb)
+        t_hi = min(seg_len, S - seg * seg_len)
+        c_hi = min(cb, C - blk * cb)
+        if t_hi > 0 and c_hi > 0:
+            h[bi, seg * seg_len:seg * seg_len + t_hi,
+              blk * cb:blk * cb + c_hi] = out[:t_hi, :c_hi].to(a.dtype)
+            if written is not None:
+                written[bi, seg * seg_len:seg * seg_len + t_hi,
+                        blk * cb:blk * cb + c_hi] += 1
+    return h
+
+
+@pytest.mark.parametrize("shape", [(2, 4096, 2560), (1, 1, 1), (3, 17, 40),
+                                   (2, 999, 130), (1, 257, 64)])
+@pytest.mark.parametrize("elem", [2, 4])
+def test_rglru_tile_plan_covers_the_input_once(shape, elem):
+    """Tiles cover (B, S, C) once, segment-major: tile = segment * chains +
+    chain, and a tile's predecessor (tile - chains) holds the same batch
+    and channels one segment earlier."""
+    B, S, C = shape
+    plan = rg.tile_plan(B, S, C, elem)
+    assert plan["channels"] == 8 * 16 // elem and plan["steps"] == 256
+    cov = np.zeros((B, plan["segments"] * 256, plan["channel_blocks"]
+                    * plan["channels"]), np.int64)
+    for tile in range(plan["tiles"]):
+        seg, chain = divmod(tile, plan["chains"])
+        bi, blk = divmod(chain, plan["channel_blocks"])
+        cov[bi, seg * 256:(seg + 1) * 256,
+            blk * plan["channels"]:(blk + 1) * plan["channels"]] += 1
+    assert (cov[:, :S, :C] == 1).all()
+    assert (plan["segments"] - 1) * 256 < S <= plan["segments"] * 256
+
+
+@pytest.mark.parametrize("ctas", [1, 7, 132, 264, 10000])
+def test_rglru_grid_walk_waits_only_on_earlier_tiles(ctas):
+    """CTA c walks tiles c, c + ctas, ... in order; each tile waits only on
+    a smaller one, taken up by its CTA no later than the waiting tile's
+    turn (earlier, on the same CTA), so the smallest unfinished tile can
+    always go on when every CTA is resident."""
+    plan = rg.tile_plan(2, 4096, 2560, 4)
+    n = plan["tiles"]
+    grid = min(ctas, n)
+    for tile in range(plan["chains"], n):
+        pred = tile - plan["chains"]
+        assert pred // grid <= tile // grid
+        if pred % grid == tile % grid:
+            assert pred // grid < tile // grid
+
+
+def test_rglru_tile_plan_refuses_empty_shapes():
+    with pytest.raises(ValueError, match="empty"):
+        rg.tile_plan(0, 10, 10, 4)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("shape,blocks", [((2, 600, 100), (200, 50)),
+                                          ((1, 300, 200), (100, 40))])
+def test_chained_rglru_matches_jax_at_ragged_s_and_c(dtype, tol, shape,
+                                                     blocks):
+    """S and C no multiples of the kernel's 256 steps and 32 / 64 channels:
+    against the JAX rglru_ref and the Pallas kernel in interpret mode (its
+    own tiles), every (b, t, c) written once."""
+    B, S, C = shape
+    a = 1 / (1 + np.exp(-normal(30, B, S, C)))
+    b = normal(31, B, S, C, scale=0.3)
+    at = torch.from_numpy(a.astype(np.float32)).to(dtype)
+    bt = torch.from_numpy(b).to(dtype)
+    written = torch.zeros(B, S, C, dtype=torch.int64)
+    got = chained_rglru(at, bt, written=written)
+    assert got.dtype == dtype and bool((written == 1).all())
+    ja, jb = jnp.asarray(at.float().numpy()), jnp.asarray(bt.float().numpy())
+    assert max_abs(got, jref.rglru_ref(ja, jb)) < tol
+    kern = jrglru(ja, jb, bt=blocks[0], bc=blocks[1], interpret=True)
+    assert max_abs(got, kern) < tol
+
+
+def test_chained_rglru_does_not_depend_on_the_order_tiles_finish_in():
+    """Whatever order the tiles are taken up in (tickets, reversed,
+    shuffled), each tile waits for its predecessor and the result is the
+    same bit for bit."""
+    a = torch.from_numpy(1 / (1 + np.exp(-normal(32, 2, 700, 90))))
+    b = torch.from_numpy(normal(33, 2, 700, 90, scale=0.3))
+    n = rg.tile_plan(2, 700, 90, 4)["tiles"]
+    orders = [None, list(range(n))[::-1],
+              list(np.random.default_rng(0).permutation(n))]
+    runs = [chained_rglru(a, b, order=o) for o in orders]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
