@@ -16,18 +16,25 @@ is not 0):
    path's shapes (B=2 lanes, m=3, T=25, D=4096 = 256 tokens x latent 16),
    float32 and bfloat16, a ragged D=4000, every round mode with a nonzero
    guard, and the round at m=8, T=1000 (its Gram partials in device
-   memory); the round's cooperative grid printed (CTAs, tiles, CTAs the
-   card holds at once; more CTAs than lanes) and two runs bit for bit;
+   memory); the Gram kernel's grid (one CTA per tile, as ``gram_plan``
+   says) and the round's cooperative grid printed (CTAs, tiles, CTAs the
+   card holds at once; more CTAs than lanes), each two runs bit for bit;
    then kernel / plain / library times (CUDA events, median of 25
    windows; and device time from torch.profiler) beside the least time
-   the card could take;
+   the card could take; the Gram kernel's library call computes G and u
+   together (the stack of its inputs made outside the timed call);
 3. the main path at full DiT-XL width (28 layers, d 1152, 16 x 72 heads,
    d_ff 4608, 256 tokens), random weights from a numpy seed, float32 with
    TF32 off: 2 requests served in one batch through the serving entry
-   points with ParaTAA staged, ParaTAA fused, and sequential DDIM (T=25).
-   Checks: every ParaTAA request converged, ParaTAA's x0 within 2e-2
-   relative of sequential, staged and fused within 1e-4 relative, and each
-   kernel's launches during its run equal to the device iterations;
+   points with ParaTAA staged, ParaTAA fused, and sequential DDIM (T=25),
+   each solve under ``torch.cuda.set_sync_debug_mode("error")`` (any wait
+   on the card but the solver's counted poll raises).  Checks: every
+   ParaTAA request converged, ParaTAA's x0 within 2e-2 relative of
+   sequential, staged and fused within 1e-4 relative, each kernel's
+   launches during its run equal to the device iterations, and the
+   engine's blocking polls equal to the device iterations + 1 (ParaTAA)
+   or 1 (sequential).  Then one fused dispatch under torch.profiler: the
+   device's idle share of the solve and the host's share of "rest";
 4. the model kernels (flash attention, GQA flash decode with a bf16 and an
    int8 cache, Mamba2 SSD scan, RG-LRU scan) driven once each through
    ``repro_torch.kernels.ops`` (``flash_decode`` for int8) at the full
@@ -213,6 +220,20 @@ def check_kernels():
             tol_g = 2.0 ** -16 * max(float(Ga.max()), float(ua.max()), 1.0)
             err_g = max(float((G - Gr).abs().max()),
                         float((u - ur).abs().max()))
+            gram_grid = dict(k.last_gram_grid)
+            G2, u2 = k.taa_gram(a["dF"], a["R"], a["mask"])
+            check(torch.equal(G, G2) and torch.equal(u, u2),
+                  f"taa_gram {name} D={D}: two runs differ")
+            plan = k.gram_plan(*a["dF"].shape, a["dF"].element_size())
+            print(f"taa_gram grid {name} D={D}: {gram_grid['ctas']} CTAs of "
+                  f"{gram_grid['threads']} threads in clusters of "
+                  f"{gram_grid['cluster']} (one a row) over "
+                  f"{gram_grid['tiles_per_row']} tiles of {k.ROUND_TILE} "
+                  f"elements a row, {plan['vector']}-element vectors; two "
+                  f"runs bit for bit")
+            check(gram_grid == {key: plan[key] for key in (
+                "ctas", "tiles_per_row", "threads", "cluster")},
+                f"taa_gram grid {gram_grid} != plan {plan}")
             out = k.taa_apply(a["x"], a["R"], a["dX"], a["dF"], a["gamma"],
                               a["mask"])
             want = ref.taa_apply_ref(a["x"], a["R"], a["dX"], a["dF"],
@@ -306,12 +327,15 @@ def time_kernels():
     a = kernel_inputs(torch.float32, 4096, window_from=0, guard_rows=1)
     x, R, dX, dF, mask, guard, gamma = (a[n] for n in (
         "x", "R", "dX", "dF", "mask", "guard", "gamma"))
+    # K1's yardstick: one PyTorch call computing G and u together, the
+    # (m+1)-stream stack [dF; R] with itself (it adds R.R); the stack is
+    # made here, outside the timed call, and every row is active, so the
+    # mask is the identity
+    stack = torch.cat([dF, R[:, None]], dim=1)
     calls = {
         "taa_gram": (lambda: k.taa_gram(dF, R, mask),
                      lambda: ref.taa_gram_ref(dF, R, mask),
-                     # one PyTorch call for K1's Gram blocks (G only; every
-                     # row is active, so the mask is the identity)
-                     lambda: torch.einsum("bmtd,bntd->btmn", dF, dF)),
+                     lambda: torch.einsum("bitd,bjtd->btij", stack, stack)),
         "taa_apply": (lambda: k.taa_apply(x, R, dX, dF, gamma, mask),
                       lambda: ref.taa_apply_ref(x, R, dX, dF, gamma, mask),
                       None),
@@ -399,12 +423,44 @@ def main_path():
             ("taa fused", get_sampler("taa", fuse_round=True, **taa)),
             ("seq", get_sampler("seq"))):
         runs[label] = serve_once(label, params, cfg, coeffs, spec, requests)
+    # traced after the counted runs: each round's first call (library
+    # handles, lazily loaded kernels) is behind it
+    for label, fuse in (("fused", True), ("staged", False)):
+        runs[f"trace {label}"] = trace_dispatch(
+            label, params, cfg, coeffs,
+            get_sampler("taa", fuse_round=fuse, **taa), requests)
     return runs
+
+
+def strict_solves(engine, profiled: bool = False):
+    """Runs each of ``engine``'s solves (not the packing, not ``collect``)
+    under ``torch.cuda.set_sync_debug_mode("error")``: any wait on the card
+    other than the solver's counted poll (an event wait, which the mode
+    does not flag) raises.  ``profiled`` marks each solve's span for a
+    profiler trace."""
+    import torch
+    from torch.profiler import record_function
+
+    solve = engine._solve
+
+    def strict(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            if profiled:
+                with record_function("solve"):
+                    return solve(*args, **kw)
+            return solve(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    engine._solve = strict
+    return engine
 
 
 def serve_once(label, params, cfg, coeffs, spec, requests):
     """One run of the serving path through ``SamplingEngine.run_batch``,
-    every launch count set to 0 just before it and read just after."""
+    every launch count set to 0 just before it and read just after; each
+    solve under sync-debug mode (``strict_solves``)."""
     import torch
 
     from repro_torch.kernels import taa_update
@@ -412,9 +468,10 @@ def serve_once(label, params, cfg, coeffs, spec, requests):
     from repro_torch.sampling import SamplingEngine
 
     timed = TimedEps(serve.make_eps_apply(cfg))
-    engine = SamplingEngine(timed, params, coeffs, spec,
-                            sample_shape=(NUM_TOKENS, cfg.latent_dim),
-                            device=torch.device("cuda"))
+    engine = strict_solves(SamplingEngine(
+        timed, params, coeffs, spec,
+        sample_shape=(NUM_TOKENS, cfg.latent_dim),
+        device=torch.device("cuda")))
     taa_update.reset_launches()
     results = engine.run_batch(requests, batch_size=REQUESTS)
     launches = dict(taa_update.launches)
@@ -428,9 +485,120 @@ def serve_once(label, params, cfg, coeffs, spec, requests):
           f"iterations; DiT {dit_ms / iters} ms/iter on the card, the rest "
           f"(update, bookkeeping, host) {d['wall_s'] * 1e3 / iters - dit_ms / iters}"
           f" ms/iter; update launches (modeled) {d['update_launches']}; "
-          f"kernel launches {launches}")
+          f"kernel launches {launches}; blocking polls {d['blocking_polls']}"
+          f", host fetch {d['host_fetch_bytes']} B (solve under sync-debug "
+          f"mode \"error\": no other wait)")
+    polls = 1 if spec.is_sequential else d["device_iters"] + 1
+    check(d["blocking_polls"] == polls,
+          f"{label}: {d['blocking_polls']} blocking polls, want {polls}")
     return dict(results=results, device_iters=d["device_iters"],
-                launches=launches)
+                launches=launches, wall_s=d["wall_s"], dit_ms=dit_ms,
+                blocking_polls=d["blocking_polls"],
+                host_fetch_bytes=d["host_fetch_bytes"])
+
+
+def trace_dispatch(label, params, cfg, coeffs, spec, requests):
+    """One dispatch under torch.profiler.  The device's idle time, when it
+    waits for the host, read two ways: at the polls, by CUDA events
+    recorded just before each poll's wait and just after it (the card has
+    finished the iteration's work at the first and is idle until the
+    second and the next launch); and as the solve's span less the union of
+    the kernels' spans that the profiler recorded (an undercount of
+    busy time when records are missing: flagged where the idle time would
+    exceed "rest", the solve wall minus the DiT's CUDA-event time).  Its
+    share of the solve, and the host's share of "rest".  Also the host
+    time of the Anderson update (its calls marked "update"), its device
+    kernels and the host ops with the most self time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.core import parataa
+    from repro_torch.launch import serve
+    from repro_torch.sampling import SamplingEngine
+
+    timed = TimedEps(serve.make_eps_apply(cfg))
+    engine = strict_solves(SamplingEngine(
+        timed, params, coeffs, spec,
+        sample_shape=(NUM_TOKENS, cfg.latent_dim),
+        device=torch.device("cuda")), profiled=True)
+    update, poll = parataa.anderson_update, parataa.poll_finished
+    waits = []
+
+    def marked_update(*args, **kw):
+        with record_function("update"):
+            return update(*args, **kw)
+
+    def timed_poll(state):
+        before = torch.cuda.Event(enable_timing=True)
+        after = torch.cuda.Event(enable_timing=True)
+        before.record()
+        done = poll(state)
+        after.record()
+        waits.append((before, after))
+        return done
+
+    parataa.anderson_update, parataa.poll_finished = marked_update, timed_poll
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            engine.run_batch(requests, batch_size=REQUESTS)
+    finally:
+        parataa.anderson_update, parataa.poll_finished = update, poll
+    torch.cuda.synchronize()
+    poll_idle = sum(a.elapsed_time(b) for a, b in waits)
+    events = prof.events()
+    span = next(e.time_range for e in events if e.name == "solve")
+    updates = [e for e in events if e.name == "update"]
+    update_ms = sum(e.time_range.elapsed_us() for e in updates) / 1e3
+
+    def launched(e):              # the device kernels an op and its callees
+        return list(e.kernels) + [k for c in e.cpu_children
+                                  for k in launched(c)]
+
+    def callees(e):
+        return [e] + [d for c in e.cpu_children for d in callees(c)]
+
+    kernels, ops = {}, {}
+    for k in (k for e in updates for k in launched(e)):
+        kernels[k.name] = kernels.get(k.name, 0.0) + k.duration / 1e3
+    for op in (d for e in updates for d in callees(e)[1:]):
+        ops[op.name] = ops.get(op.name, 0.0) + op.self_cpu_time_total / 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])
+    top_ops = sorted(ops.items(), key=lambda kv: -kv[1])
+    spans = sorted((max(e.time_range.start, span.start),
+                    min(e.time_range.end, span.end)) for e in events
+                   if e.device_type == DeviceType.CUDA)
+    check(bool(spans), "trace: the profiler saw no device work")
+    busy, end = 0.0, span.start
+    for a, b in spans:          # the union of the device's spans
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    wall = (span.end - span.start) / 1e3
+    busy /= 1e3
+    dit = timed.total_ms()
+    iters = max(engine.last_dispatches[0]["device_iters"], 1)
+    rest = wall - dit
+    idle = wall - busy
+    short = " (more than the rest: kernel records missing, not used)" \
+        if idle > rest else ""
+    print(f"trace ({label}, one dispatch under torch.profiler): solve "
+          f"{wall} ms over {iters} iterations; device idle at the {len(waits)}"
+          f" polls (CUDA events) {poll_idle} ms: device idle share "
+          f"{poll_idle / wall}; DiT {dit / iters} ms/iter, rest "
+          f"{rest / iters} ms/iter, of which the host (device idle at the "
+          f"polls) {poll_idle / iters} ms/iter: host share of rest "
+          f"{poll_idle / rest}; by the profiler's kernel spans, busy {busy} "
+          f"ms, idle {idle} ms, share {idle / wall}{short}; "
+          f"the update's host time {update_ms / iters} ms/iter, its device "
+          f"kernels {sum(kernels.values()) / iters} ms/iter, the longest "
+          f"(ms/iter): "
+          + "; ".join(f"{name[:60]} {ms / iters}" for name, ms in top[:5])
+          + "; the host ops with the most self time (ms/iter): "
+          + "; ".join(f"{name[:60]} {ms / iters}" for name, ms in top_ops[:5]))
+    return dict(solve_ms=wall, idle_share=poll_idle / wall,
+                host_share_of_rest=poll_idle / rest)
 
 
 def check_main_path(runs):
@@ -829,9 +997,14 @@ def main() -> int:
                 "taa_round": runs["taa fused"]["launches"]["taa_round"],
                 **model_launches}
     rows = []
+    library_calls = {
+        "taa_gram": "torch.einsum of the (m+1)-stream stack [dF; R] with "
+                    "itself (G and u together, and R.R); the stack made "
+                    "outside the timed call",
+        "taa_apply": None, "taa_round": None}
     for name in ("taa_gram", "taa_apply", "taa_round"):
         t = times[name]
-        rows.append(dict(
+        rows.append(dict(library_call=library_calls[name],
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=launches[name],
             max_abs_err=errs[name], ms=t["ms"], plain_ms=t["plain_ms"],
@@ -866,6 +1039,8 @@ def main() -> int:
             achieved_tflops=c["achieved_tflops"],
             achieved_tb_s=c["achieved_tb_s"], case=c["label"],
             cases=[{k: m.get(k) for k in keys} for m in mine]))
+    # the card again, so that the end of a long log still names it
+    print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

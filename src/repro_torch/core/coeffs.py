@@ -36,6 +36,13 @@ class SolverCoeffs:
     def is_ode(self) -> bool:
         return float(np.max(np.abs(self.c))) == 0.0
 
+    def cache_key(self) -> tuple:
+        """A hashable key of these values (the arrays are not hashable), for
+        the device constants built from them."""
+        return (self.T, self.eta) + tuple(
+            np.asarray(v, np.float64).tobytes()
+            for v in (self.a, self.b, self.c, self.taus, self.g2))
+
 
 def ddim_coeffs(num_steps: int, eta: float = 0.0, schedule: str = "linear",
                 n_train: int = 1000) -> SolverCoeffs:

@@ -28,6 +28,7 @@ import torch
 from repro_torch.core.anderson import anderson_update
 from repro_torch.core.coeffs import SolverCoeffs, system_matrices
 from repro_torch.core.system import first_order_residuals
+from repro_torch.device import constant, to_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,23 +99,30 @@ class SolverState:
 
 def _build_static(coeffs: SolverCoeffs, cfg: ParaTAAConfig,
                   device: torch.device) -> Dict:
+    """The solve's device constants (system matrices, coefficients), made
+    once per (coeffs, window, order, device) and shared by every
+    ``init_state`` / ``sample`` / ``step_chunk`` call."""
     T = coeffs.T
     w = min(cfg.window if cfg.window else T, T)
     k = min(cfg.order_k, T)
-    mats_k = system_matrices(coeffs, k)
 
-    def f32(a):
-        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
-                               device=device)
+    def make():
+        mats_k = system_matrices(coeffs, k)
 
-    return dict(
-        T=T, w=w, k=k,
-        lift_k=f32(mats_k.lift), weps_k=f32(mats_k.w_eps),
-        wxi_k=f32(mats_k.w_xi),
-        a=f32(coeffs.a), b=f32(coeffs.b), c=f32(coeffs.c),
-        taus=f32(coeffs.taus),
-        thresh_scale=f32(coeffs.g2[1:]),  # (T,) row t -> g2[t+1]
-    )
+        def f32(a):
+            return to_device(a, torch.float32, device)
+
+        return dict(
+            T=T, w=w, k=k,
+            lift_k=f32(mats_k.lift), weps_k=f32(mats_k.w_eps),
+            wxi_k=f32(mats_k.w_xi),
+            a=f32(coeffs.a), b=f32(coeffs.b), c=f32(coeffs.c),
+            taus=f32(coeffs.taus),
+            thresh_scale=f32(coeffs.g2[1:]),  # (T,) row t -> g2[t+1]
+        )
+
+    return constant(("parataa", coeffs.cache_key(), w, k,
+                     torch.device(device)), make)
 
 
 def _iterate(state: SolverState, static, cfg: ParaTAAConfig,
@@ -228,8 +236,15 @@ def _iterate_fn(cfg: ParaTAAConfig):
 
 
 def _per_lane(v, B: int, dtype, device) -> torch.Tensor:
-    """Scalar or (B,) value -> (B,) tensor."""
-    return torch.as_tensor(v, dtype=dtype, device=device).expand(B).clone()
+    """Scalar or (B,) value -> (B,) tensor on ``device``, with no blocking
+    host copy (a scalar is filled in on the device)."""
+    if isinstance(v, torch.Tensor):
+        v = v.to(device=device, dtype=dtype)
+    elif np.ndim(v) == 0:
+        return torch.full((B,), v, dtype=dtype, device=device)
+    else:
+        v = to_device(v, dtype, device)
+    return v.expand(B).clone()
 
 
 def init_state(coeffs: SolverCoeffs, cfg: ParaTAAConfig, xi: torch.Tensor,
@@ -300,19 +315,42 @@ def _flat_eps(eps_fn: Callable, shape) -> Callable:
 
 
 def _guarded_step(state: SolverState, static, cfg, eps_flat) -> SolverState:
-    """One iteration where lanes already ``finished`` pass through."""
-    fin = state.finished
-    if bool(fin.all()):
-        return state
-    return state.keep_where(fin, _iterate_fn(cfg)(state, static, cfg,
-                                                  eps_flat))
+    """One iteration where lanes already ``finished`` pass through.  It
+    reads nothing on the host: an all-finished bank still costs the
+    iteration's device work (as the JAX package's vmapped ``cond`` in a
+    ``scan`` does)."""
+    return state.keep_where(state.finished,
+                            _iterate_fn(cfg)(state, static, cfg, eps_flat))
+
+
+#: bytes one :func:`poll_finished` brings to the host (one bool)
+POLL_BYTES = 1
+
+
+def poll_finished(state: SolverState) -> bool:
+    """Whether every lane has finished: the solver loop's one host read.
+
+    On a CUDA tensor the flag goes by a copy that does not block into
+    pinned host memory, and the host waits on an event recorded after it:
+    the only wait of the solve.  ``sample`` calls this once per iteration,
+    and nothing else on the solve path reads the device."""
+    flag = state.finished.all()
+    if flag.device.type != "cuda":
+        return bool(flag)
+    host = torch.empty((), dtype=torch.bool, pin_memory=True)
+    host.copy_(flag, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    done.synchronize()
+    return bool(host)
 
 
 def step_chunk(eps_fn: Callable, coeffs: SolverCoeffs, cfg: ParaTAAConfig,
                state: SolverState, num_iters: int, *,
                sample_shape=()) -> SolverState:
-    """Advance ``state`` by up to ``num_iters`` guarded solver iterations:
-    driving this until ``finished`` reproduces ``sample``.  ``sample_shape``
+    """Advance ``state`` by ``num_iters`` guarded solver iterations (lanes
+    that finish pass through the rest): driving this until ``finished``
+    reproduces ``sample``.  Nothing is read on the host.  ``sample_shape``
     is the unflattened latent shape ``eps_fn`` expects (``()`` = flat)."""
     static = _build_static(coeffs, cfg, state.x.device)
     shape = tuple(sample_shape) or (state.x.shape[-1],)
@@ -343,17 +381,26 @@ def sample(eps_fn: Callable, coeffs: SolverCoeffs, cfg: ParaTAAConfig, xi,
     xi:     (B, T+1, *shape) noise draws (xi[:, T] = x_T)
     x_init: optional (B, T+1, *shape) initialization trajectory (Sec. 4.2)
     t_init / tau_sq / iter_cap: scalar or per-lane overrides (``init_state``)
-    Returns (trajectory (B, T+1, *shape), info dict of (B,) tensors).
+    Returns (trajectory (B, T+1, *shape), info dict of (B,) tensors plus
+    ``polls``, the host reads made: one :func:`poll_finished` after each
+    iteration, so as many as the slowest lane's iterations).  The first
+    poll comes after the first iteration, so a batch whose every lane
+    starts finished (``iter_cap`` 0) costs one pass-through iteration.
     """
     shape = tuple(xi.shape[2:])
     state = init_state(coeffs, cfg, xi, x_init=x_init, dtype=dtype,
                        t_init=t_init, tau_sq=tau_sq, iter_cap=iter_cap)
     static = _build_static(coeffs, cfg, xi.device)
     eps_flat = _flat_eps(eps_fn, shape)
-    while not bool(state.finished.all()):
+    polls = 0
+    while True:
         state = _guarded_step(state, static, cfg, eps_flat)
+        polls += 1
+        if poll_finished(state):
+            break
     B = xi.shape[0]
-    return state.x.reshape((B, coeffs.T + 1) + shape), state_info(state)
+    return (state.x.reshape((B, coeffs.T + 1) + shape),
+            dict(state_info(state), polls=polls))
 
 
 def sample_recording(eps_fn, coeffs: SolverCoeffs, cfg: ParaTAAConfig, xi,

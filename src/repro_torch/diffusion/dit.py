@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import constant, to_device
 from repro_torch.models.layers import (layernorm_noaffine, mlp,
                                        sincos_positions, sinusoidal_embed)
 
@@ -78,15 +79,21 @@ def _dit_attention(p, x):
     return ctx.reshape(b, n, H * hd) @ p["wo"].reshape(H * hd, d)
 
 
+def _positions(n: int, d: int, dtype, device) -> torch.Tensor:
+    """The (n, d) sincos position table on ``device``, made once per (n, d,
+    dtype, device) from the same numpy values, so no call copies it from
+    the host."""
+    return constant(("dit_positions", n, d, dtype, torch.device(device)),
+                    lambda: to_device(sincos_positions(n, d), dtype, device))
+
+
 def dit_apply(params, cfg: ArchConfig, latents, t, y=None):
     """eps prediction.  latents: (B, N, latent_dim); t: (B,) float
     timesteps; y: (B,) int class labels (None -> the null class)."""
     b, n, _ = latents.shape
     d = cfg.d_model
     x = latents @ params["in_proj"]
-    pos = torch.as_tensor(sincos_positions(n, d), dtype=x.dtype,
-                          device=x.device)
-    x = x + pos[None]
+    x = x + _positions(n, d, x.dtype, x.device)[None]
 
     temb = sinusoidal_embed(t, TEMB_DIM).to(x.dtype)
     cond = F.silu(temb @ params["t_mlp1"]) @ params["t_mlp2"]

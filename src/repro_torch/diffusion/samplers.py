@@ -11,6 +11,7 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.core.coeffs import SolverCoeffs
+from repro_torch.device import constant, to_device
 
 
 def draw_noises(seed: int, coeffs: SolverCoeffs, shape: Sequence[int], *,
@@ -39,11 +40,12 @@ def _sequential_sample(eps_fn, coeffs: SolverCoeffs, xi: torch.Tensor, *,
     T = coeffs.T
     dev = xi.device
 
-    def col(v):
-        return torch.as_tensor(v, dtype=torch.float32, device=dev)
+    def cols():
+        return tuple(to_device(v, torch.float32, dev)
+                     for v in (coeffs.a, coeffs.b, coeffs.c, coeffs.taus))
 
-    a, b, c, taus = col(coeffs.a), col(coeffs.b), col(coeffs.c), \
-        col(coeffs.taus)
+    # made once per (coeffs, device): no host copy inside the sampling
+    a, b, c, taus = constant(("sequential", coeffs.cache_key(), dev), cols)
     B = xi.shape[0]
     x_t = xi[:, T]
     rows = [None] * T + [x_t]

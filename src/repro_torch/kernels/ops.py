@@ -10,8 +10,11 @@ the JAX package's signatures (``repro/kernels/ops.py``) without its
 ``use_pallas``/``interpret`` knobs; the TAA functions take an optional
 leading lane axis.
 
-The m x m solves of the staged round stay ``torch.linalg.solve``, as the
-JAX package leaves them to XLA outside its kernels; the fused round solves
+The m x m solves of the staged round stay a PyTorch call, as the JAX
+package leaves them to XLA outside its kernels: ``torch.linalg.solve_ex``
+with ``check_errors=False``, the same LU solve as ``torch.linalg.solve``
+without the host read of its ``info`` (which waits for the card), so the
+staged round queues its work without a sync.  The fused round solves
 in-kernel by pivot-free Gauss-Jordan.
 """
 from __future__ import annotations
@@ -69,6 +72,11 @@ def _suffix_sum(x, dim):
     return torch.flip(torch.cumsum(torch.flip(x, [dim]), dim), [dim])
 
 
+def _solve(A, b):
+    """A x = b for batches of small systems, with no host read."""
+    return torch.linalg.solve_ex(A, b, check_errors=False)[0]
+
+
 def _eye(m: int, like: torch.Tensor) -> torch.Tensor:
     return torch.eye(m, dtype=torch.float32, device=like.device)
 
@@ -87,7 +95,7 @@ def taa_rowwise_gamma(dF, R, mask, *, lam: float = 1e-8):
     m = dF.shape[-3]
     Gs = _suffix_sum(G, -3) + lam * _eye(m, G)
     us = _suffix_sum(u, -2)
-    return torch.linalg.solve(Gs, us[..., None])[..., 0]
+    return _solve(Gs, us[..., None])[..., 0]
 
 
 def taa_apply(x, R, dX, dF, gamma, mask):
@@ -108,12 +116,11 @@ def taa_round_staged(x, R, dX, dF, mask, *, mode: str = "taa",
         G, u = taa_gram(dF, R, mask)
         M = G.sum(-3) + lam * _eye(m, G)                       # (..., m, m)
         if mode == "aa":
-            g = torch.linalg.solve(M, u.sum(-2)[..., None])[..., 0]
+            g = _solve(M, u.sum(-2)[..., None])[..., 0]
             gamma = g[..., None, :].expand(*g.shape[:-1], T, m)
         elif mode == "aa+":
             rhs = _suffix_sum(u, -2)                           # (..., T, m)
-            gamma = torch.linalg.solve(M[..., None, :, :],
-                                       rhs[..., None])[..., 0]
+            gamma = _solve(M[..., None, :, :], rhs[..., None])[..., 0]
         else:
             raise ValueError(mode)
     if safeguard_mask is not None:

@@ -5,7 +5,10 @@ loaded with ``ctypes``.
 They replace the Pallas TPU kernels of ``repro/kernels/taa_update.py``:
 
   taa_gram   per-row masked Gram blocks G_t = (w dF_t)(w dF_t)^T, u_t =
-             (w dF_t)(w R_t)                      [replaces taa_gram]
+             (w dF_t)(w R_t) in one launch over (lane, row, D-tile)
+             tiles, a row's tiles in one thread block cluster whose first
+             CTA sums them in tile order          [replaces taa_gram]
+             (:func:`gram_plan` gives its tiles and grid)
   taa_apply  x_t + R_t - (dX_t + dF_t)^T gamma_t on rows with mask > 0
                                                    [replaces taa_apply]
   taa_round  the whole round in one cooperative launch over (lane, row,
@@ -41,8 +44,14 @@ from repro_torch.kernels.build import BUILD_DIR, NVCC_FLAGS  # noqa: F401
 
 SOURCE = _build.CSRC / "taa_update.cu"
 MAX_M = 8
-#: floats of D in one tile of taa_round (256 threads x 2; ``kRoundTile``)
+#: elements of D in one tile of taa_gram and taa_round (``kRoundTile``)
 ROUND_TILE = 512
+#: bytes of taa_gram's vector loads, one a stream per thread
+#: (``kGramVecBytes``): 4 float32 or 8 bf16
+GRAM_VEC_BYTES = 16
+#: taa_gram's CTAs a row (one thread block cluster), at most
+#: (``kGramCluster``)
+GRAM_CLUSTER = 8
 MODES = {"taa": 0, "aa": 1, "aa+": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -55,6 +64,10 @@ launches: Dict[str, int] = {"taa_gram": 0, "taa_apply": 0, "taa_round": 0}
 #: the card holds at once for that kernel (from ``round_plan`` and the
 #: launcher's occupancy query)
 last_round_grid: Dict[str, int] = {}
+
+#: taa_gram's grid at its last launch: CTAs, tiles per row, threads a CTA
+#: and CTAs a cluster (from the launcher; ``gram_plan`` gives the same)
+last_gram_grid: Dict[str, int] = {}
 
 
 def reset_launches() -> None:
@@ -85,6 +98,26 @@ def round_plan(B: int, m: int, T: int, D: int, co_resident: int) -> dict:
                 partials=partials)
 
 
+def gram_plan(B: int, m: int, T: int, D: int, elem_size: int = 4) -> dict:
+    """taa_gram's grid: (lane, row, D-tile) tiles of ``ROUND_TILE``
+    elements; a row's tiles go to one thread block cluster of ``cluster`` =
+    min(tiles_per_row, ``GRAM_CLUSTER``) CTAs, CTA (b T + t) cluster + c
+    taking tiles c, c + cluster, ...; each thread one ``GRAM_VEC_BYTES``
+    vector of every stream (``vector`` elements of ``elem_size`` bytes), so
+    ``threads`` = ROUND_TILE / vector.  ``sums_bytes`` is the shared memory
+    the cluster's first CTA gathers the row's tile sums in."""
+    if min(B, m, T, D) < 1 or elem_size not in (2, 4):
+        raise ValueError(f"taa_gram: empty shape {(B, m, T, D)} or element "
+                         f"size {elem_size}")
+    tpr = -(-D // ROUND_TILE)
+    cluster = min(tpr, GRAM_CLUSTER)
+    vector = GRAM_VEC_BYTES // elem_size
+    return dict(tile=ROUND_TILE, tiles_per_row=tpr, tiles=B * T * tpr,
+                cluster=cluster, ctas=B * T * cluster, vector=vector,
+                threads=ROUND_TILE // vector,
+                sums_bytes=4 * tpr * (m * (m + 1) // 2 + m))
+
+
 def library_path() -> Path:
     return _build.library_path(SOURCE)
 
@@ -93,7 +126,7 @@ def library_path() -> Path:
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.taa_gram_launch.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
+    lib.taa_gram_launch.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]
     lib.taa_apply_launch.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, P]
     lib.taa_round_launch.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I,
                                      I, F, I, P]
@@ -152,12 +185,15 @@ def taa_gram(dF: torch.Tensor, R: torch.Tensor, mask: torch.Tensor):
     B, m, T, D = _check("taa_gram", (dF,), (R,), (mask,))
     G = torch.empty((B, T, m, m), dtype=torch.float32, device=dF.device)
     u = torch.empty((B, T, m), dtype=torch.float32, device=dF.device)
+    info = (ctypes.c_int * 4)()
     err = _lib().taa_gram_launch(
         dF.data_ptr(), R.data_ptr(), mask.data_ptr(), G.data_ptr(),
-        u.data_ptr(), B, m, T, D, _DTYPES[dF.dtype], dF.device.index or 0,
-        _build.stream_of(dF))
+        u.data_ptr(), info, B, m, T, D, _DTYPES[dF.dtype],
+        dF.device.index or 0, _build.stream_of(dF))
     _build.raise_on(err, "taa_gram")
     launches["taa_gram"] += 1
+    last_gram_grid.update(ctas=info[0], tiles_per_row=info[1],
+                          threads=info[2], cluster=info[3])
     return (G[0], u[0]) if squeeze else (G, u)
 
 

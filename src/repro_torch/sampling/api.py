@@ -20,6 +20,19 @@ from repro_torch.sampling.types import (DIAG_KEYS, SampleRequest,
                                         SampleResult, WarmStart)
 
 
+def sequential_sample(eps_fn: Callable, coeffs: SolverCoeffs, xi, *,
+                      return_traj: bool = False):
+    """The eq. (6) reference sampler for one request: T sequential eps
+    evaluations (the JAX package's signature).
+
+    eps_fn: (x (1, *shape), taus (1,)) -> eps (1, *shape)
+    xi:     (T+1, *shape) noises (xi[T] = x_T); its device is where it runs
+    Returns x_0 (*shape), or the full trajectory (T+1, *shape).
+    """
+    return _sequential_sample(eps_fn, coeffs, xi[None],
+                              return_traj=return_traj)[0]
+
+
 def run(spec: SamplerSpec, eps_fn: Callable, coeffs: SolverCoeffs, xi, *,
         init: Optional[WarmStart] = None, diagnostics: bool = False,
         request: Optional[SampleRequest] = None,
@@ -37,11 +50,11 @@ def run(spec: SamplerSpec, eps_fn: Callable, coeffs: SolverCoeffs, xi, *,
     spec.check_request_flags(diagnostics=diagnostics,
                              warm_start=init is not None,
                              solver_overrides=overrides)
-    xi = xi[None]
     if spec.is_sequential:
-        traj = _sequential_sample(eps_fn, coeffs, xi, return_traj=True)[0]
+        traj = sequential_sample(eps_fn, coeffs, xi, return_traj=True)
         return SampleResult(x0=traj[0], trajectory=traj, iters=T, nfe=T,
                             converged=True, request=request)
+    xi = xi[None]
 
     solver = spec.solver_config(T)
     x_init = t_init = None

@@ -43,6 +43,7 @@ class PendingBatch:
     diagnostics: bool
     pack_s: float                   # host-side packing / noise wall time
     t_dispatch: float               # clock reading when the solve started
+    polls: int = 0                  # host reads the solve made (its polls)
 
 
 class SamplingEngine:
@@ -152,7 +153,8 @@ class SamplingEngine:
 
         def eps_fn(xw, taus):
             # xw holds every lane's window, lane-major: B * w samples
-            y = labels.repeat_interleave(xw.shape[0] // B)
+            w = xw.shape[0] // B
+            y = labels[:, None].expand(B, w).reshape(B * w)
             return self.eps_apply(self.params, xw, taus, y)
 
         if spec.is_sequential:
@@ -160,7 +162,7 @@ class SamplingEngine:
             full = torch.full((B,), T, dtype=torch.long, device=xis.device)
             return traj, dict(iters=full, nfe=full.clone(),
                               converged=torch.ones_like(full,
-                                                        dtype=torch.bool))
+                                                        dtype=torch.bool)), 0
         solver = spec.solver_config(T)
         fn = _parataa.sample_recording if diagnostics else _parataa.sample
         traj, info = fn(eps_fn, coeffs, solver, xis, x_init=x0s,
@@ -168,7 +170,8 @@ class SamplingEngine:
                         iter_cap=iter_caps)
         keep = ("iters", "nfe", "converged", "residuals") + \
             (DIAG_KEYS if diagnostics else ())
-        return traj, {k: info[k] for k in keep if k in info}
+        return traj, {k: info[k] for k in keep if k in info}, \
+            info.get("polls", 0)
 
     def run(self, request: SampleRequest, **kw) -> SampleResult:
         return self.run_batch([request], **kw)[0]
@@ -178,9 +181,10 @@ class SamplingEngine:
                  diagnostics: bool = False) -> PendingBatch:
         """Pack ``requests`` and solve them as ONE lane batch, padded to
         ``slots`` lanes (default: the request count) by repeating the last
-        request.  The host loop checks per-lane convergence every
-        iteration, so this returns once the solve's last kernels are
-        queued; ``collect`` waits for them."""
+        request.  The host loop polls whether every lane has finished once
+        per iteration (``parataa.poll_finished``, its only wait on the
+        card), so this returns once the solve's last kernels are queued;
+        ``collect`` waits for them."""
         requests = list(requests)
         if not requests:
             raise ValueError("dispatch needs at least one request")
@@ -197,10 +201,11 @@ class SamplingEngine:
         packed = self._pack(chunk)
         t1 = self._clock()
         with torch.inference_mode():
-            trajs, info = self._solve(*packed, diagnostics=diagnostics)
+            trajs, info, polls = self._solve(*packed,
+                                             diagnostics=diagnostics)
         return PendingBatch(trajs=trajs, info=info, requests=requests,
                             slots=B, diagnostics=diagnostics,
-                            pack_s=t1 - t0, t_dispatch=t1)
+                            pack_s=t1 - t0, t_dispatch=t1, polls=polls)
 
     def collect(self, pending: PendingBatch) -> List[SampleResult]:
         """Wait for one dispatch, record its stats, unpack its results.
@@ -215,12 +220,15 @@ class SamplingEngine:
         self.stats["wall_s"] += wall
         self.stats["pack_s"] += pending.pack_s
 
-        # ONE host fetch per output, sliced per request in numpy
+        # what crossed to the host: the solve's polls (one flag each) and
+        # ONE fetch of the outputs, sliced per request in numpy
         fetched = sum(t.numel() * t.element_size()
-                      for t in [pending.trajs, *pending.info.values()])
+                      for t in [pending.trajs, *pending.info.values()]) \
+            + pending.polls * _parataa.POLL_BYTES
+        polls = pending.polls + 1
         trajs = _to_numpy(pending.trajs)
         info = {k: _to_numpy(v) for k, v in pending.info.items()}
-        self.stats["blocking_polls"] += 1
+        self.stats["blocking_polls"] += polls
         self.stats["host_fetch_bytes"] += fetched
 
         # every lane runs until the SLOWEST lane's iteration count:
@@ -237,7 +245,7 @@ class SamplingEngine:
                       for i in range(n_real)]
             if res_batch is not None else [None] * n_real,
             wall_s=wall, pack_s=pending.pack_s,
-            host_fetch_bytes=fetched, blocking_polls=1,
+            host_fetch_bytes=fetched, blocking_polls=polls,
             requests=n_real, slots=pending.slots,
             slot_utilization=n_real / pending.slots,
             iters=[int(i) for i in all_iters[:n_real]],

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch.configs.registry import get_arch
+from repro_torch.core import parataa
 from repro_torch.core.coeffs import ddim_coeffs
 from repro_torch.diffusion.convert import dit_init
 from repro_torch.kernels import ref
@@ -91,6 +92,52 @@ def test_gram_is_deterministic_and_unbatched_shapes_work(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,T,D", [(1, 7, 1037), (8, 25, 4096),
+                                   (3, 25, 9000), (2, 1000, 64)])
+def test_gram_tiles_match_plain_and_their_plan(dtype, m, T, D, cuda):
+    """Ragged D (vectors element by element), more tiles a row than CTAs a
+    cluster, one tile a row at T=1000: against the plain version, the
+    grid of ``gram_plan``, and the same bits on a second run."""
+    _, R, _, dF, mask, _, _ = _inputs(dtype, cuda, m=m, T=T, D=D)
+    G, u = k.taa_gram(dF, R, mask)
+    grid = dict(k.last_gram_grid)
+    Gr, ur = ref.taa_gram_ref(dF, R, mask)
+    Ga, ua = ref.taa_gram_ref(dF.abs(), R.abs(), mask)
+    tol_g = 2.0 ** -16 * max(float(Ga.max()), float(ua.max()), 1.0)
+    assert _err(G, Gr) < tol_g and _err(u, ur) < tol_g
+    plan = k.gram_plan(2, m, T, D, dF.element_size())
+    assert grid == {key: plan[key] for key in ("ctas", "tiles_per_row",
+                                               "threads", "cluster")}
+    G2, u2 = k.taa_gram(dF, R, mask)
+    assert torch.equal(G, G2) and torch.equal(u, u2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fuse", [False, True])
+def test_sample_waits_on_the_card_only_at_its_polls(fuse, cuda):
+    """Under sync-debug mode "error" every synchronizing call raises; the
+    solve's one wait, the poll's event, is not one of them.  One poll an
+    iteration."""
+    rng = np.random.default_rng(0)
+    W = torch.from_numpy(rng.standard_normal((32, 32)).astype(np.float32)
+                         / 32 ** 0.5).to(cuda)
+
+    def eps(x, taus):
+        return 0.5 * x + 0.3 * torch.tanh(x @ W)
+
+    xi = torch.from_numpy(rng.standard_normal((2, 11, 32)).astype(
+        np.float32)).to(cuda)
+    cfg = parataa.ParaTAAConfig(order_k=4, history_m=3, fuse_round=fuse)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, info = parataa.sample(eps, ddim_coeffs(10), cfg, xi)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert info["polls"] == int(info["iters"].max()) > 1
+
+
+@pytest.mark.gpu
 def test_round_handles_large_T_in_dynamic_shared_memory(cuda):
     """Any T: the Gram partials live in a device scratch, not in shared
     memory.  T=1000 with m=3 (60 KB of G and u) and with m=8 (320 KB, more
@@ -145,6 +192,7 @@ def test_engine_on_the_card_goes_through_the_kernels(cuda):
             k.reset_launches()
             res = eng.run_batch(reqs)
             n = eng.last_dispatches[0]["device_iters"]
+            assert eng.last_dispatches[0]["blocking_polls"] == n + 1
             if dev == "cuda":
                 want = {"taa_gram": 0 if fuse else n,
                         "taa_apply": 0 if fuse else n,

@@ -67,8 +67,23 @@ def test_run_batch_matches_jax_engine(dit, name):
         assert rel_err(rt.trajectory, rj.trajectory) < 1e-4
         assert rt.trajectory.shape == (T + 1,) + SHAPE
     assert teng.stats["update_launches"] == jeng.stats["update_launches"]
-    for key in ("batches", "requests", "blocking_polls"):
+    for key in ("batches", "requests"):
         assert teng.stats[key] == jeng.stats[key], key
+    # the port's own count: the reference's while_loop runs on the device,
+    # the port's loop on the host polls once per iteration (one flag byte
+    # each), and collect fetches once
+    polls = [d["device_iters"] + 1 if name == "taa" else 1
+             for d in teng.last_dispatches]
+    assert [d["blocking_polls"] for d in teng.last_dispatches] == polls
+    assert teng.stats["blocking_polls"] == sum(polls)
+    # per dispatch of 2 slots: trajectories, iters/nfe (int64), converged
+    # (bool), residuals (float32, ParaTAA only), and a byte per poll
+    outputs = 2 * ((T + 1) * SHAPE[0] * SHAPE[1] * 4 + 8 + 8 + 1
+                   + (T * 4 if name == "taa" else 0))
+    assert [d["host_fetch_bytes"] for d in teng.last_dispatches] == \
+        [outputs + p - 1 for p in polls]
+    assert teng.stats["host_fetch_bytes"] == sum(outputs + p - 1
+                                                 for p in polls)
     assert [d["slots"] for d in teng.last_dispatches] == [2, 2]
     assert [d["iters"] for d in teng.last_dispatches] == \
         [d["iters"] for d in jeng.last_dispatches]
