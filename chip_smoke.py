@@ -49,7 +49,25 @@ is not 0):
    tests' bounds) and run again bit for bit; then kernel / plain / library
    times and achieved TFLOP/s and TB/s beside the least time the card could
    take (for the TF32 attention and the SSD scan also the float32 bound of
-   their earlier CUDA-core designs).
+   their earlier CUDA-core designs);
+5. the serving stack on the same DiT-XL (``repro_torch.serving`` built as
+   ``serve.py --serve-async --steps-T 25 --mixed-keys 2 --fuse-round
+   --batch-size 2 --chunk-iters 2`` builds it, keys (dit-xl, 25, taa) and
+   (dit-xl, 12, taa), each warmed with one request): 6 requests as a
+   closed-loop burst (half with tau 1e-2) in a synchronous stepwise drain,
+   each ``stepwise_step`` and ``stepwise_refill`` under sync-debug mode
+   "error", K3's launch count set to 0 just before the drain and checked
+   equal to its device iterations just after.  Checks: every ticket
+   resolved and none failed; each trajectory within 1e-4 relative of
+   ``run_batch`` of the same requests on a fresh engine (iters beside),
+   x0 within 2e-2 of ``sequential_sample``; one blocking poll a round and
+   ``stepwise_traces`` 5 per key.  Prints per key rounds, refills,
+   wasted_iter_frac (beside the whole-batch run's), device NFE, bytes a
+   round, ticket latency p50/p95, each chunk's device ms (CUDA events)
+   against ``stepwise_step``'s host ms, and the device's idle share over
+   the drain.  Then 2 requests through a threaded stepwise loop and 2
+   through a threaded whole-batch loop (``start``/``stop``; readiness by
+   ``PendingBatch.ready()``), every ticket resolved.
 
 Then one JSON line of per-kernel numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Without CUDA, or run from a directory
@@ -429,7 +447,7 @@ def main_path():
         runs[f"trace {label}"] = trace_dispatch(
             label, params, cfg, coeffs,
             get_sampler("taa", fuse_round=fuse, **taa), requests)
-    return runs
+    return runs, params, cfg
 
 
 def strict_solves(engine, profiled: bool = False):
@@ -635,6 +653,296 @@ def check_main_path(runs):
           f"fused launches {fused['launches']} != {n_f} device iterations")
     check(runs["seq"]["launches"] == {"taa_gram": 0, "taa_apply": 0,
                                       "taa_round": 0}, "seq launched kernels")
+
+
+# --- phase 5: the serving stack, stepwise, at full DiT-XL width -------------
+
+# two keys (--mixed-keys 2): (dit-xl, 25, taa) and its half depth, both
+# fused; 2 lanes a key, 2 solver iterations a round
+SERVE_SLOTS, SERVE_CHUNK = 2, 2
+# (key index, tau) of the closed-loop burst: half the requests carry a
+# looser tau
+SERVE_TRAFFIC = ((0, None), (1, None), (0, 1e-2), (1, 1e-2), (0, None),
+                 (1, 1e-2))
+
+
+def serve_args():
+    """The CLI flags phase 5 serves with (``serve.py --serve-async
+    --steps-T 25 --mixed-keys 2 --fuse-round --batch-size 2
+    --chunk-iters 2``)."""
+    import argparse
+
+    return argparse.Namespace(
+        arch="dit-xl", steps_T=T_STEPS, solver="taa", mixed_keys=2,
+        sampler="ddim", order_k=ORDER_K, history_m=HISTORY_M, window=0,
+        fuse_round=True, batch_size=SERVE_SLOTS, chunk_iters=SERVE_CHUNK)
+
+
+class RoundTimer:
+    """Wraps one engine's ``stepwise_step``/``stepwise_refill``/
+    ``stepwise_poll`` (after warmup): each step and refill runs under
+    ``torch.cuda.set_sync_debug_mode("error")`` (the drain is synchronous,
+    and the mode is process-wide); CUDA events before and after each
+    step's launches time its chunk on the device, a host clock its call;
+    CUDA events before and after each poll's wait time the device's idle
+    at the poll.  ``log`` collects every timer's chunks in the order they
+    were queued (one stream: the device runs them in that order)."""
+
+    def __init__(self, engine, log: list, strict: bool = True):
+        import torch
+
+        self.chunks, self.waits, self.log = [], [], log
+        self.engine = engine
+        step, refill, poll = (engine.stepwise_step, engine.stepwise_refill,
+                              engine.stepwise_poll)
+
+        def event():
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+
+        def checked(fn, *args):
+            if strict:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        def timed_step(bank):
+            start, t0 = event(), time.perf_counter()
+            checked(step, bank)
+            host = time.perf_counter() - t0
+            self.chunks.append((start, event(), host))
+            self.log.append(self.chunks[-1])
+
+        def timed_poll(bank):
+            waits = bank.poll_cache is None and bank.summary is not None
+            before = event() if waits else None
+            out = poll(bank)
+            if waits:
+                self.waits.append((before, event()))
+            return out
+
+        engine.stepwise_step = timed_step
+        engine.stepwise_refill = lambda *args: checked(refill, *args)
+        engine.stepwise_poll = timed_poll
+
+    def restore(self) -> None:
+        """The engine's own methods again (the instance attributes go)."""
+        for name in ("stepwise_step", "stepwise_refill", "stepwise_poll"):
+            delattr(self.engine, name)
+
+    def summary(self):
+        import torch
+
+        torch.cuda.synchronize()
+        chunk_ms = [a.elapsed_time(b) for a, b, _ in self.chunks]
+        host_ms = [h * 1e3 for _, _, h in self.chunks]
+        wait_ms = [a.elapsed_time(b) for a, b in self.waits]
+        return chunk_ms, host_ms, wait_ms
+
+
+def serving_path(params, cfg, device, num_tokens=NUM_TOKENS):
+    """Phase 5: the port's serving stack (``serve.make_engine_factory``,
+    ``mixed_engine_keys``, ``EngineRegistry.warmup``, ``ServingLoop``) on
+    the configuration of ``serve_args``: a synchronous stepwise drain of
+    ``SERVE_TRAFFIC`` with K3's launch count set to 0 just before it and
+    read just after, then a threaded stepwise run and a threaded
+    whole-batch run of 2 requests each."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import taa_update
+    from repro_torch.launch import serve
+    from repro_torch.sampling import SampleRequest
+    from repro_torch.serving import (Batcher, BatchingPolicy, EngineRegistry,
+                                     RequestQueue, ServingLoop)
+
+    args = serve_args()
+    keys = serve.mixed_engine_keys(args)
+    factory = serve.make_engine_factory(cfg, params, args, device,
+                                        num_tokens=num_tokens)
+    registry = EngineRegistry(factory)
+    queue = RequestQueue()
+    loop = ServingLoop(registry, queue, Batcher(BatchingPolicy(
+        max_batch=args.batch_size)), chunk_iters=args.chunk_iters)
+    t0 = time.monotonic()
+    for key in keys:
+        registry.warmup(key, slots=loop.batcher.slots_for(registry.get(key)),
+                        chunk_iters=args.chunk_iters)
+    print(f"phase 5 keys {[k.describe() for k in keys]} warmed in "
+          f"{time.monotonic() - t0} s (one request each)")
+    log = []
+    timers = {key: RoundTimer(registry.get(key), log,
+                              strict=device.type == "cuda") for key in keys}
+    rng = np.random.default_rng(SEED + 5)
+    requests = [(keys[k], SampleRequest(
+        label=int(rng.integers(0, cfg.num_classes)),
+        seed=int(rng.integers(1 << 30)), tau=tau))
+        for k, tau in SERVE_TRAFFIC]
+    taa_update.reset_launches()
+    t0 = time.monotonic()
+    tickets = [queue.submit(req, key) for key, req in requests]
+    loop.drain()
+    drain_s = time.monotonic() - t0
+    launches = dict(taa_update.launches)
+    for timer in timers.values():
+        timer.restore()
+    failed = []
+    for t in tickets:
+        try:
+            t.result(timeout=0)
+        except Exception as error:  # noqa: BLE001 — every failure counts
+            failed.append(repr(error))
+    check(not failed, f"phase 5: {len(failed)} ticket(s) failed: {failed}")
+    reports = loop.bank_reports()
+    served = dict(drain_s=drain_s, keys=keys, reports=reports,
+                  launches=launches, tickets=tickets, timers=timers,
+                  log=log, loop_stats=dict(loop.stats), factory=factory,
+                  traces={key: registry.get(key).stats["stepwise_traces"]
+                          for key in keys})
+    served["threaded"] = threaded_runs(registry, keys[0], cfg)
+    return served
+
+
+def threaded_runs(registry, key, cfg):
+    """2 requests through a background stepwise loop (start/stop), then 2
+    through a background whole-batch loop (``chunk_iters=0``: the loop
+    collects whichever dispatch ``PendingBatch.ready()`` says is done)."""
+    from repro_torch.sampling import SampleRequest
+    from repro_torch.serving import (Batcher, BatchingPolicy, RequestQueue,
+                                     ServingLoop)
+
+    out = {}
+    for chunk_iters in (SERVE_CHUNK, 0):
+        queue = RequestQueue()
+        loop = ServingLoop(registry, queue, Batcher(BatchingPolicy(
+            max_batch=SERVE_SLOTS, max_wait_s=0.01)),
+            chunk_iters=chunk_iters)
+        t0 = time.monotonic()
+        with loop:
+            tickets = [queue.submit(SampleRequest(label=7 * i + 1,
+                                                  seed=100 + i), key)
+                       for i in range(2)]
+            results = [t.result(timeout=600) for t in tickets]
+        label = "stepwise" if chunk_iters else "whole-batch"
+        check(loop.stats["completed"] == 2 and loop.stats["failed"] == 0
+              and all(r.converged for r in results),
+              f"phase 5 threaded {label}: {loop.stats}")
+        print(f"phase 5 threaded {label} (start/stop): 2 requests served in "
+              f"{time.monotonic() - t0} s, iters {[r.iters for r in results]}"
+              f", loop stats {dict(loop.stats)}")
+        out[label] = dict(loop.stats)
+    return out
+
+
+def check_serving(served, params, cfg, device, num_tokens=NUM_TOKENS):
+    """Phase 5's checks and printout: every ticket against ``run_batch``
+    of the same requests on a fresh engine (1e-4 relative, iters beside)
+    and x0 against ``sequential_sample`` (2e-2); one blocking poll a round
+    and 5 stepwise program kinds per key; K3 launched once per device
+    iteration; per key rounds, refills, wasted_iter_frac (and the
+    whole-batch run's), device NFE, bytes a round, ticket latency, the
+    device's idle share over the drain and a step's host time against its
+    chunk's device time."""
+    import numpy as np
+    import torch
+
+    from repro_torch.diffusion.dit import dit_apply
+    from repro_torch.sampling import sequential_sample
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+    by_key = {}
+    for t in served["tickets"]:
+        by_key.setdefault(t.key, []).append(t)
+    total_iters = 0
+    for key in served["keys"]:
+        tickets = by_key[key]
+        fresh = served["factory"](key)
+        ref = fresh.run_batch([t.request for t in tickets],
+                              batch_size=SERVE_SLOTS)
+        caps = sum(d["device_iters"] * d["slots"]
+                   for d in fresh.last_dispatches)
+        whole_wasted = 1.0 - sum(sum(d["iters"])
+                                 for d in fresh.last_dispatches) / caps
+        coeffs = fresh.coeffs
+        for t, r in zip(tickets, ref):
+            got = t.result(timeout=0)
+            err = rel(got.trajectory, r.trajectory)
+            req = t.request
+            labels = torch.full((1,), req.label, dtype=torch.long,
+                                device=device)
+
+            def eps(x, taus, labels=labels):
+                return dit_apply(params, cfg, x, taus,
+                                 labels.expand(x.shape[0]))
+
+            with torch.inference_mode():
+                x0 = sequential_sample(eps, coeffs,
+                                       fresh.draw_request_noise(req)
+                                       .to(device))
+            seq_err = rel(got.x0, x0.cpu().numpy())
+            print(f"phase 5 {key.describe()} label={req.label} tau="
+                  f"{req.tau}: stepwise iters {got.iters} nfe {got.nfe} "
+                  f"converged={got.converged}, run_batch iters {r.iters} "
+                  f"nfe {r.nfe}; trajectory vs run_batch rel err {err} "
+                  f"(bound 1e-4); x0 vs sequential rel err {seq_err} "
+                  f"(bound 2e-2)")
+            check(got.trajectory.shape == (key.T + 1, num_tokens,
+                                           cfg.latent_dim)
+                  and np.all(np.isfinite(got.trajectory)),
+                  f"phase 5 {key.describe()}: trajectory shape/finiteness")
+            check(err < 1e-4, f"phase 5 stepwise vs run_batch {err}")
+            check(seq_err < 2e-2, f"phase 5 x0 vs sequential {seq_err}")
+        rep = served["reports"][key]
+        chunk_ms, host_ms, wait_ms = served["timers"][key].summary()
+        rounds = len(chunk_ms)
+        check(rep["blocking_polls"] == rounds
+              == rep["device_iters"] // SERVE_CHUNK,
+              f"phase 5 {key.describe()}: {rep['blocking_polls']} blocking "
+              f"polls over {rounds} rounds")
+        check(served["traces"][key] == 5,
+              f"phase 5 {key.describe()}: stepwise_traces "
+              f"{served['traces'][key]}, want 5")
+        total_iters += rep["device_iters"]
+        lat = np.asarray([t.latency_s for t in tickets])
+        print(f"phase 5 {key.describe()}: {rounds} rounds, "
+              f"{rep['refills']} refills, {rep['completed']} served, "
+              f"blocking polls {rep['blocking_polls']} (one a round), "
+              f"device iters {rep['device_iters']} x {rep['slots']} lanes, "
+              f"wasted_iter_frac {rep['wasted_iter_frac']} (whole-batch "
+              f"run_batch of the same requests {whole_wasted}), device NFE "
+              f"{rep['device_nfe']}, {rep['host_fetch_bytes'] / rounds} "
+              f"B/round, {rep['gather_launches']} gathers; ticket latency "
+              f"p50 {np.percentile(lat, 50)} s p95 {np.percentile(lat, 95)}"
+              f" s; chunk device ms {chunk_ms}; stepwise_step host ms "
+              f"{host_ms} (host share of its chunk "
+              f"{sum(host_ms) / sum(chunk_ms)}); device idle at the "
+              f"{len(wait_ms)} poll waits {sum(wait_ms)} ms; stepwise_traces "
+              f"{served['traces'][key]}")
+    log = served["log"]
+    span_ms = log[0][0].elapsed_time(log[-1][1])
+    busy_ms = sum(a.elapsed_time(b) for a, b, _ in log)
+    wait_ms = sum(sum(tm.summary()[2]) for tm in served["timers"].values())
+    print(f"phase 5 drain: {len(served['tickets'])} tickets resolved, none "
+          f"failed, in {served['drain_s']} s; loop stats "
+          f"{served['loop_stats']}; device from the first chunk's start to "
+          f"the last chunk's end {span_ms} ms, in chunks {busy_ms} ms: "
+          f"device idle share {1 - busy_ms / span_ms} (outside the chunks: "
+          f"idle, or the small harvest and refill kernels); at the poll "
+          f"waits {wait_ms} ms "
+          f"(share {wait_ms / span_ms}); K3 launches in the drain "
+          f"{served['launches']}")
+    check(served["launches"] == {"taa_gram": 0, "taa_apply": 0,
+                                 "taa_round": total_iters},
+          f"phase 5 launches {served['launches']} != {total_iters} device "
+          f"iterations")
+    return dict(idle_share=1 - busy_ms / span_ms,
+                taa_round_launches=served["launches"]["taa_round"])
 
 
 # --- phase 4: the model kernels through kernels.ops at model widths ----------
@@ -980,7 +1288,7 @@ def main() -> int:
     errs = check_kernels()
     times, bnd = time_kernels()
     t2 = time.monotonic()
-    runs = main_path()
+    runs, params, cfg = main_path()
     check_main_path(runs)
     t3 = time.monotonic()
     cases = model_cases()
@@ -989,8 +1297,13 @@ def main() -> int:
     errs.update(check_model_kernels(cases, outs))
     del outs
     time_model_kernels(cases)
+    t4 = time.monotonic()
+    cuda = torch.device("cuda")
+    served = serving_path(params, cfg, cuda)
+    serving = check_serving(served, params, cfg, cuda)
     print(f"phase seconds: build {t1 - t0}, taa kernels {t2 - t1}, DiT-XL "
-          f"serving {t3 - t2}, model kernels {time.monotonic() - t3}")
+          f"serving {t3 - t2}, model kernels {t4 - t3}, DiT-XL stepwise "
+          f"serving {time.monotonic() - t4}")
 
     launches = {"taa_gram": runs["taa staged"]["launches"]["taa_gram"],
                 "taa_apply": runs["taa staged"]["launches"]["taa_apply"],
@@ -1011,7 +1324,9 @@ def main() -> int:
             bound_ms=bnd[name]["bound_ms"], bound_by=bnd[name]["bound_by"],
             library_ms=t["library_ms"], device_ms=t["device_ms"],
             plain_device_ms=t["plain_device_ms"],
-            library_device_ms=t["library_device_ms"]))
+            library_device_ms=t["library_device_ms"],
+            **({"stepwise_launches": serving["taa_round_launches"]}
+               if name == "taa_round" else {})))
     keys = ("label", "path", "ms", "device_ms", "plain_ms", "plain_device_ms",
             "library_ms", "library_device_ms", "bound_ms", "bound_by",
             "f32_bound_ms", "nbytes", "ops", "achieved_tflops",

@@ -372,6 +372,17 @@ def lane_residual(state: SolverState) -> torch.Tensor:
     return torch.amax(state.r_last, dim=-1)
 
 
+def lane_summary(state: SolverState) -> torch.Tensor:
+    """(B, 5) int32 per-lane scheduling summary, the one array a stepwise
+    poll brings to the host: finished, it, nfe, done, and
+    :func:`lane_residual`'s float32 bits (``.view(torch.int32)``, read back
+    on the host with ``.view(np.float32)``)."""
+    return torch.stack(
+        [state.finished.to(torch.int32), state.it.to(torch.int32),
+         state.nfe.to(torch.int32), state.done.to(torch.int32),
+         lane_residual(state).float().view(torch.int32)], dim=-1)
+
+
 def sample(eps_fn: Callable, coeffs: SolverCoeffs, cfg: ParaTAAConfig, xi,
            x_init: Optional[torch.Tensor] = None, dtype=torch.float32,
            t_init=None, tau_sq=None, iter_cap=None):

@@ -38,11 +38,16 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 def to_device(a, dtype: torch.dtype, device: DeviceLike) -> torch.Tensor:
-    """Host data (numpy, list, scalar) -> a ``dtype`` tensor on ``device``,
-    converted on the host.  To a CUDA device the copy goes from pinned
-    memory without blocking: the stream is not waited for."""
-    t = torch.as_tensor(np.asarray(a), dtype=dtype)
+    """Host data (numpy, list, scalar, CPU tensor) -> a ``dtype`` tensor on
+    ``device``, converted on the host.  To a CUDA device the copy goes from
+    pinned memory without blocking: the stream is not waited for."""
     device = torch.device(device)
+    if isinstance(a, torch.Tensor):
+        if a.device.type != "cpu":
+            return a.to(device=device, dtype=dtype)
+        t = a.to(dtype)
+    else:
+        t = torch.as_tensor(np.asarray(a), dtype=dtype)
     if device.type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)

@@ -1,16 +1,38 @@
 """SamplingEngine: batched execution of SampleRequests on one device.
 
 The engine owns (denoiser apply fn, params, solver coefficients, sampler
-spec, sample shape, device) and runs whole batches of requests through the
+spec, sample shape, device) and runs batches of requests through the
 ParaTAA solver with the requests as its lane axis, so every solver
 iteration evaluates the denoiser on a single (requests x window) batch and
 every Anderson update is one kernel launch for all lanes.
 
 Per-request labels, seeds, warm starts (Sec 4.2) and solver budgets are
-per-lane data.  Batches are padded to a fixed slot count by repeating the
-last request (padding discarded at ``collect``).  ``run_batch`` is the
-blocking path; its halves ``dispatch`` (pack + solve) and ``collect``
-(wait for the device, fetch, account) are public.
+per-lane data.  Host data reaches the card only through
+``repro_torch.device.to_device`` (pinned memory, a copy that does not
+block), so packing never waits for the stream.
+
+Two ways to run requests:
+
+  * whole batches: ``run_batch``, or its halves ``dispatch`` (pack +
+    solve; returns once the last iteration is queued) and ``collect``
+    (waits on the dispatch's own CUDA event, fetches, accounts), padded to
+    a fixed slot count by repeating the last request;
+  * the stepwise protocol of a :class:`LaneBank` (iteration-level
+    continuous batching, what ``repro_torch.serving.ServingLoop`` drives
+    with ``chunk_iters > 0``): ``stepwise_open`` (an all-vacant bank),
+    ``stepwise_refill`` (pack requests into free lanes of the live state),
+    ``stepwise_step`` (queue ``chunk_iters`` guarded iterations and the
+    packed (slots, 5) summary's copy to pinned host memory; no wait),
+    ``stepwise_poll`` (the round's one blocking read), ``stepwise_harvest``
+    (gather only the retired lanes' rows) and ``stepwise_report``.
+    ``fetch_bank``/``adopt_bank`` move a live bank through host memory
+    with its exact bytes.
+
+Eager PyTorch compiles nothing, so where the JAX package counts traced
+programs, ``stats["stepwise_traces"]`` counts the first use of each of the
+stepwise protocol's five program kinds (open, init, merge, step, gather)
+per engine: a drain with mid-solve refills holds it at 5, as the
+reference's does.
 
 Noise comes from ``noise_fn(request) -> (T+1, *sample_shape)``, by default
 :func:`repro_torch.diffusion.samplers.draw_noises` seeded from
@@ -27,15 +49,23 @@ import torch
 
 from repro_torch.core import parataa as _parataa
 from repro_torch.core.coeffs import SolverCoeffs
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, resolve_device, to_device
 from repro_torch.diffusion.samplers import _sequential_sample, draw_noises
+from repro_torch.obs import Observability, StatsView
 from repro_torch.sampling.specs import SamplerSpec
 from repro_torch.sampling.types import DIAG_KEYS, SampleRequest, SampleResult
 
 
 @dataclasses.dataclass
 class PendingBatch:
-    """One dispatch whose outputs may still be in flight on the device."""
+    """One dispatch whose outputs may still be in flight on the device.
+
+    ``trajs``/``info`` are host tensors (pinned on the card) that the
+    dispatch's outputs are being copied into without blocking; ``event`` is
+    a CUDA event recorded after those copies (None on the CPU, where the
+    outputs are ready when ``dispatch`` returns).  ``collect`` waits on
+    that event only — not on work queued after it — and ``ready`` asks it
+    without waiting."""
     trajs: torch.Tensor
     info: Dict[str, torch.Tensor]
     requests: List[SampleRequest]   # the real (unpadded) requests
@@ -44,6 +74,95 @@ class PendingBatch:
     pack_s: float                   # host-side packing / noise wall time
     t_dispatch: float               # clock reading when the solve started
     polls: int = 0                  # host reads the solve made (its polls)
+    event: Optional[torch.cuda.Event] = None
+
+    def ready(self) -> bool:
+        """Whether the outputs are computed (collecting will not block)."""
+        return self.event is None or self.event.query()
+
+
+@dataclasses.dataclass
+class LaneBank:
+    """A live, resumable batch of solver lanes (the stepwise dispatch unit).
+
+    ``state`` is the lane-batched :class:`repro_torch.core.parataa
+    .SolverState` on the engine's device; each of the ``slots`` lanes holds
+    one in-flight request (or ``None`` = vacant, kept ``finished`` by an
+    iteration budget of 0, so the guarded chunk passes it through).  Lanes
+    retire the moment their own request finishes and are refilled in place.
+
+    Work accounting: ``device_iters`` counts solver iterations the device
+    ran while the bank was stepped (every step costs the full bank width,
+    finished or not), ``useful_iters``/``harvested_nfe`` accumulate
+    per-lane progress at harvest, so ``wasted_iter_frac`` measures
+    lane-iterations burned after the owning lane finished (or on vacant
+    lanes).
+
+    Host protocol state: ``summary_buf`` is the bank's (slots, 5) int32
+    host buffer (pinned on the card) that each step's packed summary is
+    copied into without blocking; ``summary`` is that buffer while it
+    describes the current state (set by step, dropped by refill) and
+    ``summary_event`` the CUDA event recorded after the copy.  ``poll_cache``
+    shares the round's ONE blocking poll between harvest and report
+    (invalidated by step/refill).  ``host_fetch_bytes`` /
+    ``blocking_polls`` / ``gather_launches`` count what crossed to the
+    host.
+    """
+    state: _parataa.SolverState
+    labels: torch.Tensor                   # (slots,) long on the device
+    requests: List[Optional[SampleRequest]]
+    slots: int
+    chunk_iters: int
+    summary_buf: torch.Tensor              # (slots, 5) int32 host buffer
+    device_iters: int = 0
+    useful_iters: int = 0
+    harvested_nfe: int = 0
+    completed: int = 0
+    refills: int = 0
+    pack_s: float = 0.0
+    summary: Optional[torch.Tensor] = None
+    summary_event: Optional[torch.cuda.Event] = None
+    poll_cache: Optional[Dict] = None      # this round's host-side poll
+    host_fetch_bytes: int = 0
+    blocking_polls: int = 0
+    gather_launches: int = 0
+    harvests: int = 0                      # rounds that retired >= 1 lane
+    update_launches: int = 0               # modeled Anderson-update kernel
+                                           # launches (3/iter staged, 1
+                                           # fused, 0 when no update runs)
+
+    def free_lanes(self) -> List[int]:
+        return [i for i, r in enumerate(self.requests) if r is None]
+
+    @property
+    def occupied(self) -> int:
+        return sum(r is not None for r in self.requests)
+
+
+@dataclasses.dataclass
+class BankSnapshot:
+    """A host copy of a live :class:`LaneBank`: every
+    :class:`~repro_torch.core.parataa.SolverState` field as numpy
+    (``state``, by field name; bfloat16 fields carry their bits as int16,
+    named in ``bf16``), the lane labels, the lane requests, and the bank's
+    work counters (``counters``), so ``SamplingEngine.adopt_bank`` resumes
+    the solve with the exact bytes and a report that covers the bank's
+    whole life."""
+    state: Dict[str, np.ndarray]
+    labels: np.ndarray                      # (slots,) int64
+    requests: List[Optional[SampleRequest]]
+    slots: int
+    chunk_iters: int
+    counters: Dict[str, object] = dataclasses.field(default_factory=dict)
+    bf16: tuple = ()
+
+    @property
+    def occupied(self) -> int:
+        return sum(r is not None for r in self.requests)
+
+    def nbytes(self) -> int:
+        return int(sum(a.nbytes for a in self.state.values())
+                   + self.labels.nbytes)
 
 
 class SamplingEngine:
@@ -57,7 +176,14 @@ class SamplingEngine:
     device:       where the solve runs; None = cuda (raises without CUDA)
     noise_fn:     request -> (T+1, *sample_shape) noise; default draws from
                   a torch.Generator seeded with ``request.seed``
-    clock:        monotonic timestamp source for ``wall_s``/``pack_s``
+    clock:        monotonic timestamp source for ``wall_s``/``pack_s`` and
+                  span timing (never wall clock)
+    obs:          optional :class:`repro_torch.obs.Observability` bundle;
+                  default a private disabled one (``Observability.off()``),
+                  so instrumentation never branches.  ``bind_obs`` re-homes
+                  the engine onto a shared bundle after construction.
+    name:         label of this engine's metric series and trace track
+                  (``EngineRegistry`` binds the engine key's description)
     """
 
     #: ``last_dispatches`` cap
@@ -67,7 +193,9 @@ class SamplingEngine:
                  spec: SamplerSpec, *, sample_shape: Sequence[int],
                  dtype=torch.float32, device: DeviceLike = None,
                  noise_fn: Optional[Callable] = None,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 obs: Optional[Observability] = None,
+                 name: Optional[str] = None):
         self.eps_apply = eps_apply
         self.params = params
         self.coeffs = coeffs
@@ -77,10 +205,30 @@ class SamplingEngine:
         self.device = resolve_device(device)
         self.noise_fn = noise_fn or self.draw_request_noise
         self._clock = clock
-        self.stats = {"batches": 0, "requests": 0, "wall_s": 0.0,
-                      "pack_s": 0.0, "host_fetch_bytes": 0,
-                      "blocking_polls": 0, "update_launches": 0}
+        self.obs = obs if obs is not None else Observability.off()
+        self.name = name or "engine"
+        self._stepwise_kinds = set()   # stepwise program kinds used so far
+        self.stats = StatsView(
+            self.obs.metrics, "engine", labels={"engine": self.name},
+            initial={"stepwise_traces": 0, "batches": 0, "requests": 0,
+                     "wall_s": 0.0, "pack_s": 0.0, "host_fetch_bytes": 0,
+                     "blocking_polls": 0, "gather_launches": 0,
+                     "update_launches": 0})
         self.last_dispatches: List[Dict] = []
+
+    def bind_obs(self, obs: Observability, name: Optional[str] = None) -> None:
+        """Re-home this engine onto a shared observability bundle: its
+        ``stats`` view starts mirroring into the shared registry (replaying
+        current values) and its spans land on the shared tracer.  ``stats``
+        keeps its identity."""
+        self.obs = obs
+        if name is not None:
+            self.name = name
+        self.stats.rebind(obs.metrics, labels={"engine": self.name})
+
+    @property
+    def _tracer(self):
+        return self.obs.tracer
 
     @property
     def window(self) -> int:
@@ -111,16 +259,17 @@ class SamplingEngine:
     def _pack(self, requests: Sequence[SampleRequest]):
         """-> per-lane tensors on the engine's device: xis, x0s (B, T+1,
         *sample_shape) f32; labels, t_inits, iter_caps (B,) long; tau_sqs
-        (B,) f32."""
+        (B,) f32.  Built on the host and copied with ``to_device`` (pinned,
+        no wait for the stream): a refill packs between rounds while the
+        previous chunk still runs."""
         T = self.coeffs.T
-        dev = self.device
+        shape = (T + 1,) + self.sample_shape
         xis, x0s, labels, t_inits, tau_sqs, iter_caps = [], [], [], [], [], []
         for req in requests:
-            xi = torch.as_tensor(self.noise_fn(req), dtype=torch.float32)
-            xi = xi.to(dev).reshape((T + 1,) + self.sample_shape)
+            xi = _host_f32(self.noise_fn(req)).reshape(shape)
             xis.append(xi)
             labels.append(req.label)
-            tau_sqs.append(float(self.spec.request_tau_sq(req)))
+            tau_sqs.append(self.spec.request_tau_sq(req))
             iter_caps.append(self.spec.request_iter_cap(req, T))
             if req.init is None:
                 x0s.append(xi)          # cold start: noise-initialized
@@ -128,20 +277,17 @@ class SamplingEngine:
             else:
                 # warm starts pack as f32 whatever precision they were
                 # recorded in; t_init None => full restart, 0 => verify only
-                init = req.init.trajectory
-                init = init.float() if isinstance(init, torch.Tensor) \
-                    else torch.from_numpy(np.asarray(init, np.float32))
-                x0s.append(init.to(dev).reshape(xi.shape))
+                x0s.append(_host_f32(req.init.trajectory).reshape(shape))
                 t_inits.append(T if req.init.t_init is None
                                else req.init.t_init)
-
-        def ints(v):
-            return torch.as_tensor(v, dtype=torch.long, device=dev)
-
-        return (torch.stack(xis), ints(labels), torch.stack(x0s),
-                ints(t_inits),
-                torch.as_tensor(tau_sqs, dtype=torch.float32, device=dev),
-                ints(iter_caps))
+        dev = self.device
+        return (to_device(np.stack(xis), torch.float32, dev),
+                to_device(labels, torch.long, dev),
+                to_device(np.stack(x0s), torch.float32, dev),
+                to_device(t_inits, torch.long, dev),
+                to_device(np.asarray(tau_sqs, np.float32), torch.float32,
+                          dev),
+                to_device(iter_caps, torch.long, dev))
 
     # -- execution -----------------------------------------------------------
 
@@ -150,12 +296,7 @@ class SamplingEngine:
         coeffs, spec = self.coeffs, self.spec
         T = coeffs.T
         B = xis.shape[0]
-
-        def eps_fn(xw, taus):
-            # xw holds every lane's window, lane-major: B * w samples
-            w = xw.shape[0] // B
-            y = labels[:, None].expand(B, w).reshape(B * w)
-            return self.eps_apply(self.params, xw, taus, y)
+        eps_fn = self._lane_eps(labels)
 
         if spec.is_sequential:
             traj = _sequential_sample(eps_fn, coeffs, xis, return_traj=True)
@@ -173,6 +314,27 @@ class SamplingEngine:
         return traj, {k: info[k] for k in keep if k in info}, \
             info.get("polls", 0)
 
+    def _lane_eps(self, labels: torch.Tensor) -> Callable:
+        """eps_fn over every lane's window, lane-major (B * w samples),
+        each sample conditioned on its lane's label."""
+        B = labels.shape[0]
+
+        def eps_fn(xw, taus):
+            w = xw.shape[0] // B
+            y = labels[:, None].expand(B, w).reshape(B * w)
+            return self.eps_apply(self.params, xw, taus, y)
+
+        return eps_fn
+
+    def _record_event(self) -> Optional[torch.cuda.Event]:
+        """A CUDA event recorded on the engine's current stream after
+        everything queued so far (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
     def run(self, request: SampleRequest, **kw) -> SampleResult:
         return self.run_batch([request], **kw)[0]
 
@@ -183,8 +345,9 @@ class SamplingEngine:
         ``slots`` lanes (default: the request count) by repeating the last
         request.  The host loop polls whether every lane has finished once
         per iteration (``parataa.poll_finished``, its only wait on the
-        card), so this returns once the solve's last kernels are queued;
-        ``collect`` waits for them."""
+        card), so this returns once the solve's last kernels are queued,
+        with a CUDA event recorded after them; ``collect`` waits on that
+        event."""
         requests = list(requests)
         if not requests:
             raise ValueError("dispatch needs at least one request")
@@ -198,21 +361,31 @@ class SamplingEngine:
                 f"{len(requests)} requests exceed {B} request slots")
         chunk = requests + [requests[-1]] * (B - len(requests))
         t0 = self._clock()
-        packed = self._pack(chunk)
+        with self._tracer.span("engine.pack", tid=self.name,
+                               requests=len(requests), slots=B):
+            packed = self._pack(chunk)
         t1 = self._clock()
-        with torch.inference_mode():
-            trajs, info, polls = self._solve(*packed,
-                                             diagnostics=diagnostics)
+        with self._tracer.span("engine.dispatch", tid=self.name, slots=B):
+            with torch.inference_mode():
+                trajs, info, polls = self._solve(*packed,
+                                                 diagnostics=diagnostics)
+                trajs = _to_host_async(trajs)
+                info = {k: _to_host_async(v) for k, v in info.items()}
+            event = self._record_event()
         return PendingBatch(trajs=trajs, info=info, requests=requests,
                             slots=B, diagnostics=diagnostics,
-                            pack_s=t1 - t0, t_dispatch=t1, polls=polls)
+                            pack_s=t1 - t0, t_dispatch=t1, polls=polls,
+                            event=event)
 
     def collect(self, pending: PendingBatch) -> List[SampleResult]:
-        """Wait for one dispatch, record its stats, unpack its results.
+        """Wait for one dispatch (its own event, not the whole device),
+        record its stats, unpack its results.
 
         ``wall_s`` spans solve start -> outputs ready on the device."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with self._tracer.span("engine.collect", tid=self.name,
+                               requests=len(pending.requests)):
+            if pending.event is not None:
+                pending.event.synchronize()
         wall = self._clock() - pending.t_dispatch
         n_real = len(pending.requests)
         self.stats["batches"] += 1
@@ -345,9 +518,358 @@ class SamplingEngine:
             raise ValueError(
                 f"warm-start t_init={t_init} outside [0, T={T}]")
 
+    # -- stepwise (iteration-level) execution --------------------------------
+    #
+    # One LaneBank per engine holds a live lane-batched SolverState;
+    # `stepwise_step` advances every lane by `chunk_iters` guarded solver
+    # iterations, `stepwise_harvest` retires lanes the moment THEIR OWN
+    # solve finishes (convergence, max_iters, or a Sec 4.1 quality-steps
+    # early exit), and `stepwise_refill` packs fresh requests into the
+    # vacated lanes of the SAME live state.  Five program kinds in all:
+    # open (vacant bank), init (the refilled lanes' fresh state), merge
+    # (select it into those lanes), step (the chunk plus the packed
+    # (slots, 5) summary) and gather (only the retired lanes' rows).
+
+    def _stepwise_cfg(self) -> _parataa.ParaTAAConfig:
+        return self.spec.stepwise_config(self.coeffs.T)
+
+    def _note_program(self, kind: str) -> None:
+        """Count the first use of a stepwise program kind (the port's
+        ``stepwise_traces``: eager PyTorch has nothing to trace)."""
+        if kind not in self._stepwise_kinds:
+            self._stepwise_kinds.add(kind)
+            self.stats["stepwise_traces"] += 1
+
+    def stepwise_open(self, slots: int, *, chunk_iters: int) -> LaneBank:
+        """Open an all-vacant LaneBank of ``slots`` lanes: every lane's
+        iteration budget is 0, so it is finished from the start and chunks
+        pass it through until a refill."""
+        if chunk_iters < 1:
+            raise ValueError(f"chunk_iters must be >= 1, got {chunk_iters}")
+        if slots < 1:
+            raise ValueError(f"slots must be >= 1, got {slots}")
+        T, dev = self.coeffs.T, self.device
+        t0 = self._clock()
+        with self._tracer.span("stepwise.open", tid=self.name, slots=slots):
+            with torch.inference_mode():
+                xi = torch.zeros((slots, T + 1) + self.sample_shape,
+                                 dtype=torch.float32, device=dev)
+                state = _parataa.init_state(self.coeffs, self._stepwise_cfg(),
+                                            xi, dtype=self.dtype,
+                                            iter_cap=0)
+                labels = torch.zeros((slots,), dtype=torch.long, device=dev)
+            buf = torch.zeros((slots, 5), dtype=torch.int32,
+                              pin_memory=dev.type == "cuda")
+        self._note_program("open")
+        bank = LaneBank(state=state, labels=labels, requests=[None] * slots,
+                        slots=slots, chunk_iters=chunk_iters,
+                        summary_buf=buf)
+        bank.pack_s += self._clock() - t0
+        return bank
+
+    def stepwise_refill(self, bank: LaneBank, lanes: Sequence[int],
+                        requests: Sequence[SampleRequest]) -> None:
+        """Pack ``requests`` into the given vacant ``lanes`` of the live
+        bank state.  Only the admitted requests are packed (their noise
+        drawn); ``index_select`` spreads their rows over the lane positions
+        and a per-lane select merges them in, so lanes outside the refill
+        keep their state.  Nothing is read on the host."""
+        requests = list(requests)
+        if len(requests) != len(lanes):
+            raise ValueError(f"{len(requests)} requests for "
+                             f"{len(lanes)} lanes")
+        if not requests:
+            return
+        taken = [bank.requests[lane] for lane in lanes]
+        if any(r is not None for r in taken):
+            raise ValueError(f"lanes {list(lanes)} are not all vacant")
+        self.spec.check_request_flags(
+            warm_start=any(r.init is not None for r in requests),
+            solver_overrides=any(r.has_solver_overrides for r in requests))
+        t0 = self._clock()
+        dev = self.device
+        with self._tracer.span("stepwise.refill", tid=self.name,
+                               lanes=len(lanes)):
+            with torch.inference_mode():
+                xis, labels, x0s, t_inits, tau_sqs, iter_caps = \
+                    self._pack(requests)
+                pos = {lane: i for i, lane in enumerate(lanes)}
+                idx = to_device([pos.get(j, 0) for j in range(bank.slots)],
+                                torch.long, dev)
+                refill = to_device([j in pos for j in range(bank.slots)],
+                                   torch.bool, dev)
+
+                def spread(a):
+                    return a.index_select(0, idx)
+
+                fresh = _parataa.init_state(
+                    self.coeffs, self._stepwise_cfg(), spread(xis),
+                    x_init=spread(x0s), dtype=self.dtype,
+                    t_init=spread(t_inits), tau_sq=spread(tau_sqs),
+                    iter_cap=spread(iter_caps))
+                bank.state = fresh.keep_where(refill, bank.state)
+                bank.labels = torch.where(refill, spread(labels),
+                                          bank.labels)
+        self._note_program("init")
+        self._note_program("merge")
+        for lane, req in zip(lanes, requests):
+            bank.requests[lane] = req
+        # the last step's summary no longer describes the refilled lanes:
+        # the next poll (only a report issued before the next step) reads
+        # the state fields instead
+        bank.summary = None
+        bank.summary_event = None
+        bank.poll_cache = None
+        bank.refills += 1
+        bank.pack_s += self._clock() - t0
+
+    def stepwise_step(self, bank: LaneBank) -> None:
+        """Queue ``bank.chunk_iters`` guarded solver iterations on every
+        lane, then the packed (slots, 5) summary's copy into the bank's
+        host buffer and an event behind it.  Does not wait: the next
+        ``stepwise_poll`` does, on that event."""
+        with self._tracer.span("stepwise.step", tid=self.name,
+                               chunk_iters=bank.chunk_iters,
+                               occupied=bank.occupied):
+            with torch.inference_mode():
+                state = _parataa.step_chunk(
+                    self._lane_eps(bank.labels), self.coeffs,
+                    self._stepwise_cfg(), bank.state, bank.chunk_iters,
+                    sample_shape=self.sample_shape)
+                bank.summary_buf.copy_(_parataa.lane_summary(state),
+                                       non_blocking=True)
+            bank.summary_event = self._record_event()
+        self._note_program("step")
+        bank.state = state
+        bank.summary = bank.summary_buf
+        bank.poll_cache = None
+        bank.device_iters += bank.chunk_iters
+        launches = bank.chunk_iters * self.update_launches_per_iter()
+        bank.update_launches += launches
+        self.stats["update_launches"] += launches
+
+    def _count_fetch(self, bank: LaneBank, nbytes: int, *,
+                     polls: int = 0, gathers: int = 0) -> None:
+        bank.host_fetch_bytes += nbytes
+        bank.blocking_polls += polls
+        bank.gather_launches += gathers
+        self.stats["host_fetch_bytes"] += nbytes
+        self.stats["blocking_polls"] += polls
+        self.stats["gather_launches"] += gathers
+
+    def stepwise_poll(self, bank: LaneBank) -> Dict[str, np.ndarray]:
+        """The round's per-lane scheduling view, and its ONE blocking read:
+        wait on the last step's event, then copy its (slots, 5) summary out
+        of the host buffer (before a later step can overwrite it).  Cached
+        on the bank, so harvest and report share it until step/refill
+        invalidate it."""
+        if bank.poll_cache is not None:
+            return bank.poll_cache
+        if bank.summary is not None:
+            with self._tracer.span("stepwise.poll", tid=self.name):
+                if bank.summary_event is not None:
+                    bank.summary_event.synchronize()
+                packed = bank.summary.numpy().copy()
+            # column 4 carries the f32 per-lane residual's bits; .copy()
+            # first — a column slice is non-contiguous, which .view cannot
+            # reinterpret
+            polled = dict(finished=packed[:, 0].astype(bool),
+                          iters=packed[:, 1], nfe=packed[:, 2],
+                          done=packed[:, 3].astype(bool),
+                          residual=packed[:, 4].copy().view(np.float32))
+            self._count_fetch(bank, packed.nbytes, polls=1)
+        else:
+            # no chunk has run since open/refill: read the state fields,
+            # in the reference's dtypes
+            state = bank.state
+            with self._tracer.span("stepwise.poll", tid=self.name,
+                                   fallback=True):
+                with torch.inference_mode():
+                    polled = dict(
+                        finished=_to_numpy(state.finished),
+                        iters=_to_numpy(state.it.to(torch.int32)),
+                        nfe=_to_numpy(state.nfe.to(torch.int32)),
+                        done=_to_numpy(state.done),
+                        residual=_to_numpy(
+                            _parataa.lane_residual(state).float()))
+            self._count_fetch(bank, sum(v.nbytes for v in polled.values()),
+                              polls=1)
+        bank.poll_cache = polled
+        return polled
+
+    def stepwise_harvest(self, bank: LaneBank):
+        """Retire every occupied lane whose OWN solve has finished: returns
+        ``[(lane, SampleResult), ...]`` and vacates those lanes (their state
+        stays ``finished``, so later chunks pass them through until refill).
+
+        Only the retired lanes' rows cross to the host: one gather
+        (``index_select`` by an index padded to ``slots`` with the first
+        retired lane) and a ``len(ready) x (T+1) x D`` fetch; sequential
+        specs skip the residual rows (they discard them)."""
+        if not any(req is not None for req in bank.requests):
+            return []                       # idle bank: nothing to poll
+        polled = self.stepwise_poll(bank)
+        ready = [i for i, req in enumerate(bank.requests)
+                 if req is not None and polled["finished"][i]]
+        if not ready:
+            return []
+        T = self.coeffs.T
+        n = len(ready)
+        with self._tracer.span("stepwise.harvest", tid=self.name, retired=n):
+            with torch.inference_mode():
+                idx = to_device(ready + [ready[0]] * (bank.slots - n),
+                                torch.long, self.device)
+                xg = bank.state.x.index_select(0, idx)[:n]
+                fetched = xg.numel() * xg.element_size()
+                trajs = _to_numpy(xg).reshape((n, T + 1) + self.sample_shape)
+                residuals = None
+                if not self.spec.is_sequential:
+                    rg = bank.state.r_last.index_select(0, idx)[:n]
+                    fetched += rg.numel() * rg.element_size()
+                    residuals = _to_numpy(rg)
+        self._note_program("gather")
+        self._count_fetch(bank, fetched, gathers=1)
+        bank.harvests += 1
+        out = []
+        for j, lane in enumerate(ready):
+            req = bank.requests[lane]
+            iters = int(polled["iters"][lane])
+            nfe = int(polled["nfe"][lane])
+            converged = bool(polled["done"][lane])
+            out.append((lane, SampleResult(
+                x0=trajs[j, 0], trajectory=trajs[j],
+                iters=iters, nfe=nfe, converged=converged,
+                early_stopped=self.spec.request_early_stopped(
+                    req, T, iters, converged),
+                residuals=None if residuals is None else residuals[j],
+                request=req)))
+            bank.requests[lane] = None
+            bank.useful_iters += iters
+            bank.harvested_nfe += nfe
+            bank.completed += 1
+        return out
+
+    def stepwise_report(self, bank: LaneBank) -> Dict:
+        """Work-accounting snapshot of a bank, shaped like a
+        ``last_dispatches`` entry.  Reuses the round's cached poll when
+        harvest already paid for it: reporting never adds a second
+        blocking read to a round."""
+        polled = self.stepwise_poll(bank)
+        live_iters = int(sum(polled["iters"][i]
+                             for i, r in enumerate(bank.requests)
+                             if r is not None))
+        useful = bank.useful_iters + live_iters
+        return dict(
+            slots=bank.slots, chunk_iters=bank.chunk_iters,
+            completed=bank.completed, refills=bank.refills,
+            occupied=bank.occupied, pack_s=bank.pack_s,
+            useful_iters=useful,
+            residual=[_finite_or_none(polled["residual"][i])
+                      if bank.requests[i] is not None else None
+                      for i in range(bank.slots)],
+            warm_start_depth=[self._warm_depth(r) for r in bank.requests],
+            host_fetch_bytes=bank.host_fetch_bytes,
+            blocking_polls=bank.blocking_polls,
+            gather_launches=bank.gather_launches,
+            harvests=bank.harvests,
+            update_launches=bank.update_launches,
+            devices=1,
+            slot_utilization=bank.occupied / bank.slots,
+            **self._work_report(useful, bank.device_iters, bank.slots))
+
+    # -- moving a bank through host memory -----------------------------------
+
+    #: LaneBank counters a snapshot carries, so an adopted bank's report
+    #: still covers its whole life
+    _CARRIED_COUNTERS = ("device_iters", "useful_iters", "harvested_nfe",
+                         "completed", "refills", "pack_s",
+                         "host_fetch_bytes", "blocking_polls",
+                         "gather_launches", "harvests", "update_launches")
+
+    def fetch_bank(self, bank: LaneBank) -> BankSnapshot:
+        """Copy a live bank's whole solver state to the host as a
+        :class:`BankSnapshot`: one blocking fetch of every state field (not
+        the summary path: the exact bytes are the point), counted as one
+        blocking poll plus its bytes."""
+        with self._tracer.span("stepwise.fetch_bank", tid=self.name,
+                               slots=bank.slots, occupied=bank.occupied):
+            with torch.inference_mode():
+                state, bf16 = {}, []
+                for f in dataclasses.fields(bank.state):
+                    t = getattr(bank.state, f.name)
+                    if t.dtype == torch.bfloat16:
+                        t = t.view(torch.int16)
+                        bf16.append(f.name)
+                    state[f.name] = t.cpu().numpy()
+                labels = bank.labels.cpu().numpy()
+        snap = BankSnapshot(
+            state=state, labels=labels, requests=list(bank.requests),
+            slots=bank.slots, chunk_iters=bank.chunk_iters,
+            counters={k: getattr(bank, k) for k in self._CARRIED_COUNTERS},
+            bf16=tuple(bf16))
+        self._count_fetch(bank, snap.nbytes(), polls=1)
+        snap.counters["host_fetch_bytes"] = bank.host_fetch_bytes
+        snap.counters["blocking_polls"] = bank.blocking_polls
+        return snap
+
+    def adopt_bank(self, snapshot: BankSnapshot, *,
+                   chunk_iters: Optional[int] = None) -> LaneBank:
+        """A live :class:`LaneBank` on this engine's device with the
+        snapshot's exact bytes: the next ``stepwise_step`` resumes the solve
+        where ``fetch_bank`` froze it, bit for bit.  The first poll after it
+        reads the state fields (still one blocking poll for that round)."""
+        dev = self.device
+        with self._tracer.span("stepwise.adopt_bank", tid=self.name,
+                               slots=snapshot.slots,
+                               occupied=snapshot.occupied):
+            fields = {}
+            for name, arr in snapshot.state.items():
+                t = torch.from_numpy(arr.copy())
+                if name in snapshot.bf16:
+                    t = t.view(torch.bfloat16)
+                fields[name] = to_device(t, t.dtype, dev)
+            state = _parataa.SolverState(**fields)
+            labels = to_device(snapshot.labels, torch.long, dev)
+            buf = torch.zeros((snapshot.slots, 5), dtype=torch.int32,
+                              pin_memory=dev.type == "cuda")
+        return LaneBank(state=state, labels=labels,
+                        requests=list(snapshot.requests),
+                        slots=snapshot.slots,
+                        chunk_iters=int(chunk_iters or snapshot.chunk_iters),
+                        summary_buf=buf, **snapshot.counters)
+
+    def reset_stats(self) -> None:
+        """Rewind the serving counters and dispatch reports (e.g. after a
+        warmup), keeping ``stepwise_traces``: program kinds already used
+        stay used.  Zeroes every other key through the view, so the
+        registry mirror follows."""
+        for key, value in list(self.stats.items()):
+            if key == "stepwise_traces":
+                continue
+            self.stats[key] = 0.0 if isinstance(value, float) else 0
+        self.last_dispatches = []
+
     def throughput(self) -> float:
         """Requests per second over every batch this engine has run."""
         return self.stats["requests"] / max(self.stats["wall_s"], 1e-9)
+
+
+def _to_host_async(t: torch.Tensor) -> torch.Tensor:
+    """A CUDA tensor's copy into pinned host memory, queued without
+    blocking (read it only after an event recorded behind the copy); a
+    CPU tensor as it is."""
+    if t.device.type != "cuda":
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
+
+
+def _host_f32(a) -> np.ndarray:
+    """Host data (numpy, list, CPU or device tensor) -> float32 numpy."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(a, np.float32)
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:

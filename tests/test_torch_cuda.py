@@ -205,3 +205,67 @@ def test_engine_on_the_card_goes_through_the_kernels(cuda):
             err = np.abs(r.trajectory - c.trajectory).max() \
                 / np.abs(c.trajectory).max()
             assert err < 1e-4, (key, err)
+
+
+@pytest.mark.gpu
+def test_stepwise_serving_on_the_card(cuda):
+    """The reduced DiT served stepwise (fused) on the card and on the CPU
+    through the same ServingLoop drain: the same iters, trajectories
+    within 1e-4; each step and refill under sync-debug mode "error"; K3
+    launched once per device iteration; a whole-batch dispatch carries
+    an event that ``collect`` waits on."""
+    from repro_torch.serving import (Batcher, BatchingPolicy, EngineKey,
+                                     EngineRegistry, RequestQueue,
+                                     ServingLoop)
+
+    cfg = get_arch("dit-xl").reduced()
+    reqs = [SampleRequest(label=1, seed=3), SampleRequest(label=5, seed=4),
+            SampleRequest(label=2, seed=5, tau=1e-2)]
+    key = EngineKey("dit-xl", 10, "taa")
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        params = dit_init(cfg, 0, dev, ada_scale=0.05)
+
+        def factory(key, params=params, dev=dev):
+            engine = serve.make_engine(params, cfg, ddim_coeffs(key.T),
+                                       get_sampler("taa", fuse_round=True),
+                                       device=dev)
+            if dev == "cuda":
+                for name in ("stepwise_step", "stepwise_refill"):
+                    fn = getattr(engine, name)
+
+                    def strict(*args, fn=fn):
+                        torch.cuda.set_sync_debug_mode("error")
+                        try:
+                            return fn(*args)
+                        finally:
+                            torch.cuda.set_sync_debug_mode(0)
+
+                    setattr(engine, name, strict)
+            return engine
+
+        registry = EngineRegistry(factory)
+        queue = RequestQueue()
+        loop = ServingLoop(registry, queue,
+                           Batcher(BatchingPolicy(max_batch=2)),
+                           chunk_iters=2)
+        k.reset_launches()
+        tickets = [queue.submit(r, key) for r in reqs]
+        loop.drain()
+        report = loop.bank_reports()[key]
+        if dev == "cuda":
+            assert k.launches == {"taa_gram": 0, "taa_apply": 0,
+                                  "taa_round": report["device_iters"]}
+            engine = registry.get(key)
+            pending = engine.dispatch(reqs[:1], slots=2)
+            assert pending.event is not None
+            [res] = engine.collect(pending)
+            assert pending.ready() and res.converged
+        assert report["blocking_polls"] == report["device_iters"] // 2
+        assert registry.get(key).stats["stepwise_traces"] == 5
+        outs[dev] = [t.result(timeout=0) for t in tickets]
+    for g, c in zip(outs["cuda"], outs["cpu"]):
+        assert g.converged and g.iters == c.iters
+        err = np.abs(g.trajectory - c.trajectory).max() \
+            / np.abs(c.trajectory).max()
+        assert err < 1e-4, err

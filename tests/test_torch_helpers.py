@@ -160,3 +160,59 @@ def torch_cfg(cfg_jax):
     names = {f.name for f in dataclasses.fields(ArchConfig)}
     return ArchConfig(**{k: v for k, v in dataclasses.asdict(cfg_jax).items()
                          if k in names})
+
+
+# --- serving stacks over the label oracle, for both packages -------------------
+
+
+def label_factories(dim: int = 24, n_labels: int = 4):
+    """(jax factory, torch factory), each ``(EngineKey, spec_kw=None,
+    **engine_kw) -> SamplingEngine`` over the label oracle denoiser (the
+    sampler ``get_sampler(key.solver, **spec_kw)``), the port's noise the
+    JAX package's draw for the same seed (``noise_fn``)."""
+    from repro.core import ddim_coeffs as jddim
+    from repro.diffusion.samplers import draw_noises as jdraw
+    from repro.sampling import SamplingEngine as JEngine
+    from repro.sampling import get_sampler as jget
+    from repro_torch.core import ddim_coeffs as tddim
+    from repro_torch.sampling import SamplingEngine as TEngine
+    from repro_torch.sampling import get_sampler as tget
+    from tests.helpers import make_label_denoiser
+
+    eps_j = make_label_denoiser(dim=dim, n_labels=n_labels)
+    eps_t = torch_label_denoiser(*label_arrays(dim, n_labels))
+    noises = {}
+
+    def noise_fn(coeffs):
+        def draw(req):
+            key = (coeffs.T, req.seed)
+            if key not in noises:
+                noises[key] = np.asarray(jdraw(jax.random.PRNGKey(req.seed),
+                                               coeffs, (dim,)))
+            return noises[key]
+        return draw
+
+    def jax_factory(key, spec_kw=None, **kw):
+        return JEngine(eps_j, None, jddim(key.T),
+                       jget(key.solver, **(spec_kw or {})),
+                       sample_shape=(dim,), **kw)
+
+    def torch_factory(key, spec_kw=None, **kw):
+        coeffs = tddim(key.T)
+        return TEngine(eps_t, None, coeffs,
+                       tget(key.solver, **(spec_kw or {})),
+                       sample_shape=(dim,), device=CPU,
+                       noise_fn=noise_fn(coeffs), **kw)
+
+    return jax_factory, torch_factory
+
+
+def assert_same_result(got, want, tol: float = 1e-4) -> None:
+    """A port SampleResult against the JAX package's: iters/nfe/flags
+    exactly, the trajectory within ``tol`` relative."""
+    assert (got.iters, got.nfe, got.converged, got.early_stopped) == \
+        (int(want.iters), int(want.nfe), bool(want.converged),
+         bool(want.early_stopped)), (got.request, want.request)
+    assert got.request.label == want.request.label
+    assert got.request.seed == want.request.seed
+    assert rel_err(got.trajectory, want.trajectory) < tol, got.request
