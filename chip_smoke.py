@@ -67,7 +67,24 @@ is not 0):
    against ``stepwise_step``'s host ms, and the device's idle share over
    the drain.  Then 2 requests through a threaded stepwise loop and 2
    through a threaded whole-batch loop (``start``/``stop``; readiness by
-   ``PendingBatch.ready()``), every ticket resolved.
+   ``PendingBatch.ready()``), every ticket resolved;
+6. train -> checkpoint -> serve at DiT-XL's full width, on a card freed of
+   the earlier phases' params and engines, through the drivers' entry
+   points (``repro_torch.launch.train``, ``serve.main --ckpt``): run A
+   trains 2 steps (batch 16 of 16 tokens, as the reference trains) and
+   saves step 2; run B resumes from it, runs steps 2-3 and saves step 4;
+   run C trains 4 steps without checkpoints.  Every launch count set to 0
+   just before each run and read just after (training launches no kernel
+   of the port).  Checks: B resumed at step 2 and ran 2 steps; its losses
+   within 1e-5 relative of C's steps 2-3; the step-4 params read back
+   equal B's in memory (``torch.equal``); then ``serve.main --ckpt`` with
+   ParaTAA (fused: K3 launched once per iteration) and sequential DDIM,
+   T=25, 2 requests: every ParaTAA request converged, x0 within 2e-2 of
+   sequential.  Prints the disk's usage before the first save, the
+   checkpoint's bytes and its write and read seconds, each step's wall
+   and device ms split into forward+backward and update (CUDA events),
+   and peak memory.  The checkpoint directory (``build/chip_smoke_ckpt``)
+   is deleted at the end.
 
 Then one JSON line of per-kernel numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Without CUDA, or run from a directory
@@ -76,6 +93,7 @@ without the repository's ``src/``, it fails before printing any result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -945,6 +963,265 @@ def check_serving(served, params, cfg, device, num_tokens=NUM_TOKENS):
                 taa_round_launches=served["launches"]["taa_round"])
 
 
+# --- phase 6: train -> checkpoint -> serve at full DiT-XL width -------------
+
+#: phase 6's train flags (``repro_torch.launch.train``) beside ``--steps``
+#: and ``--ckpt-dir``: one save per run, the final one
+TRAIN_FLAGS = ["--arch", "dit-xl", "--batch", "16", "--ckpt-every", "1000",
+               "--log-every", "1"]
+#: run B's losses against run C's at the same steps: the same state and
+#: batches, but the backward of the y_embed gather accumulates with
+#: atomics, so the two runs need not agree bit for bit
+LOSS_RTOL = 1e-5
+#: the serve flags phase 6 restores the checkpoint with (``serve.py``)
+SERVE_FLAGS = ["--steps-T", "25", "--requests", "2", "--batch-size", "2"]
+#: DiT-XL's parameters at latent 16 and 1000 classes (``dit_defs``)
+DIT_XL_PARAMS = 822_962_304
+
+
+def kernel_modules():
+    from repro_torch.kernels import (flash_attention, flash_decode,
+                                     rglru_scan, ssd_scan, taa_update)
+    return (taa_update, flash_attention, flash_decode, ssd_scan, rglru_scan)
+
+
+def reset_all_launches() -> None:
+    for mod in kernel_modules():
+        mod.reset_launches()
+
+
+def all_launches() -> dict:
+    out = {}
+    for mod in kernel_modules():
+        out.update(mod.launches)
+    return out
+
+
+class CkptTimes:
+    """Wall seconds of the checkpoint calls the drivers make: each
+    ``save_pytree`` (the background thread's serialization and write),
+    ``CheckpointManager.save`` (the host copy and, with ``blocking``, the
+    wait for the write) and ``load_pytree`` (a restore's read and
+    placement on the card)."""
+
+    NAMES = ("save_pytree", "load_pytree")
+
+    def __init__(self):
+        from repro_torch.ckpt import checkpoint
+
+        self.mod = checkpoint
+        self.real = {name: getattr(checkpoint, name) for name in self.NAMES}
+        self.real["save"] = checkpoint.CheckpointManager.save
+        self.log = []
+        for name in self.NAMES:
+            setattr(checkpoint, name, self._timed(name, self.real[name]))
+        checkpoint.CheckpointManager.save = self._timed("save",
+                                                        self.real["save"])
+
+    def _timed(self, name, fn):
+        def call(*args, **kw):
+            t0 = time.monotonic()
+            out = fn(*args, **kw)
+            self.log.append((name, time.monotonic() - t0))
+            return out
+        return call
+
+    def take(self) -> dict:
+        out = {}
+        for name, s in self.log:
+            out.setdefault(name, []).append(s)
+        self.log = []
+        return out
+
+    def restore(self) -> None:
+        for name in self.NAMES:
+            setattr(self.mod, name, self.real[name])
+        self.mod.CheckpointManager.save = self.real["save"]
+
+
+def free_card() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def train_run(label, argv, times):
+    """One run of the train driver (``train.run``, whose losses
+    ``train.main`` returns), every launch count set to 0 just before and
+    read just after: the training path launches no kernel of the port."""
+    from repro_torch.launch import train
+
+    reset_all_launches()
+    t0 = time.monotonic()
+    res = train.run(argv)
+    wall = time.monotonic() - t0
+    launches = all_launches()
+    print(f"phase 6 run {label} ({' '.join(argv)}): resumed at step "
+          f"{res.start_step}, losses {res.losses}, run {wall} s, "
+          f"checkpoint calls (s) {times.take()}, kernel launches {launches}")
+    for st in res.step_ms:
+        print(f"phase 6 run {label} step {st}")
+    check(not any(launches.values()),
+          f"phase 6 run {label}: kernel launches {launches} in training")
+    check(all(math.isfinite(x) for x in res.losses),
+          f"phase 6 run {label}: non-finite loss {res.losses}")
+    return res
+
+
+def serve_run(label, ckpt_dir, flags):
+    """``serve.main --ckpt`` once, every launch count set to 0 just before
+    and read just after; the engine's results kept for the checks."""
+    from repro_torch.launch import serve
+
+    captured = []
+    real_make = serve.make_engine
+
+    def make_engine(*args, **kw):
+        engine = real_make(*args, **kw)
+        run_batch = engine.run_batch
+
+        def recorded(*a, **k):
+            results = run_batch(*a, **k)
+            captured.append((engine, results))
+            return results
+        engine.run_batch = recorded
+        return engine
+
+    serve.make_engine = make_engine
+    try:
+        reset_all_launches()
+        t0 = time.monotonic()
+        outs, _ = serve.main(["--ckpt", str(ckpt_dir), *flags])
+        wall = time.monotonic() - t0
+        launches = all_launches()
+    finally:
+        serve.make_engine = real_make
+    [(engine, results)] = captured
+    d = engine.last_dispatches[0]
+    print(f"phase 6 serve {label}: " + "; ".join(
+        f"label={r.request.label} iters={r.iters} nfe={r.nfe} "
+        f"converged={r.converged}" for r in results)
+        + f"; dispatch wall {d['wall_s']} s over {d['device_iters']} device "
+          f"iterations; kernel launches {launches}; serve.main {wall} s")
+    return dict(outs=outs, results=results, device_iters=d["device_iters"],
+                launches=launches)
+
+
+def step_summary(runs) -> dict:
+    """Median train-step ms over the runs' steps after each run's first
+    (which pays the process's one-time costs)."""
+    steady = [st for res in runs for st in res.step_ms[1:]]
+    return {k: statistics.median(st[k] for st in steady)
+            for k in ("wall_ms", "fwd_bwd_ms", "update_ms")}
+
+
+def train_checkpoint_serve(ckpt_dir: Path):
+    """Phase 6: runs A (2 steps, saves step 2), B (resumes at step 2, runs
+    steps 2-3, saves step 4) and C (4 steps, no checkpoint) of the train
+    driver at DiT-XL's full width; the step-4 params read back against B's
+    in memory; then ``serve.main --ckpt`` with ParaTAA (fused: K3) and with
+    sequential DDIM.  The checkpoint directory is deleted at the end."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.tree import leaves
+
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.mkdir(parents=True)
+    usage = shutil.disk_usage(ckpt_dir)
+    print(f"phase 6 checkpoint dir {ckpt_dir}: disk total {usage.total} B, "
+          f"used {usage.used} B, free {usage.free} B before the first save")
+    times = CkptTimes()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        ck = ["--ckpt-dir", str(ckpt_dir)]
+        a = train_run("A", TRAIN_FLAGS + ["--steps", "2"] + ck, times)
+        check(len(a.losses) == 2, f"phase 6 run A: {len(a.losses)} losses")
+        del a
+        free_card()
+        b = train_run("B", TRAIN_FLAGS + ["--steps", "4"] + ck, times)
+        check(b.start_step == 2 and len(b.losses) == 2,
+              f"phase 6 run B: resumed at step {b.start_step} with "
+              f"{len(b.losses)} losses, want 2 and 2")
+        params_b = b.state["params"]
+        b.state = None           # the optimizer state goes
+        free_card()
+        c = train_run("C", TRAIN_FLAGS + ["--steps", "4"], times)
+        check(len(c.losses) == 4, f"phase 6 run C: {len(c.losses)} losses")
+        train_peak = torch.cuda.max_memory_allocated()
+        c.state = None
+        free_card()
+        loss_err = max(abs(x - y) / abs(y)
+                       for x, y in zip(b.losses, c.losses[2:]))
+        print(f"phase 6 losses: B (steps 2-3) {b.losses}, C (steps 0-3) "
+              f"{c.losses}; B against C's steps 2-3 rel err {loss_err} "
+              f"(bound {LOSS_RTOL})")
+        check(loss_err < LOSS_RTOL,
+              f"phase 6 B's losses off C's by {loss_err}")
+        steps = sorted(p.name for p in ckpt_dir.glob("step_*"))
+        check(steps == ["step_00000002", "step_00000004"],
+              f"phase 6 checkpoints {steps}")
+        step_dir = ckpt_dir / "step_00000004"
+        nbytes = sum(p.stat().st_size for p in step_dir.iterdir())
+        step, tree = CheckpointManager(ckpt_dir).restore(
+            {"step": 0, "params": params_b})
+        read_s = times.take()["load_pytree"]
+        same = all(torch.equal(x, y) for x, y in zip(
+            leaves(tree["params"]), leaves(params_b)))
+        n_params = sum(x.numel() for x in leaves(tree["params"]))
+        print(f"phase 6 checkpoint step {step}: {nbytes} B on disk "
+              f"(params + AdamW master, mu, nu; {n_params} parameters); "
+              f"params read back in {read_s} s, equal to run B's in memory "
+              f"(torch.equal, every leaf): {same}")
+        check(step == 4 and same, "phase 6 restored params != run B's")
+        check(n_params == DIT_XL_PARAMS, f"phase 6: {n_params} parameters")
+        summary = step_summary([b, c])
+        print(f"phase 6 train step, median of B's and C's steps after "
+              f"each run's first: wall {summary['wall_ms']} ms, device "
+              f"forward+backward {summary['fwd_bwd_ms']} ms, update "
+              f"{summary['update_ms']} ms; peak memory allocated in "
+              f"training {train_peak} B")
+        del tree, params_b
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        served = {}
+        for label, extra in (("taa", ["--solver", "taa", "--fuse-round"]),
+                             ("seq", ["--solver", "seq"])):
+            served[label] = serve_run(label, ckpt_dir, SERVE_FLAGS + extra)
+        serve_peak = torch.cuda.max_memory_allocated()
+        print(f"phase 6 serve checkpoint calls (s) {times.take()}; peak "
+              f"memory allocated in serving {serve_peak} B")
+    finally:
+        times.restore()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    taa, seq = served["taa"], served["seq"]
+    err = float(np.max(np.abs(taa["outs"] - seq["outs"]))
+                / np.max(np.abs(seq["outs"])))
+    print(f"phase 6 served from the checkpoint: ParaTAA x0 against "
+          f"sequential rel err {err} (bound 2e-2), iters "
+          f"{[r.iters for r in taa['results']]} of T=25")
+    check(taa["outs"].shape == seq["outs"].shape == (2, 16, 16)
+          and np.all(np.isfinite(taa["outs"])), "phase 6 x0 shape/finite")
+    check(err < 2e-2, f"phase 6 ParaTAA x0 off sequential by {err}")
+    check(all(r.converged for r in taa["results"]),
+          "phase 6: a ParaTAA request did not converge")
+    want = {name: 0 for name in all_launches()}
+    check(seq["launches"] == want,
+          f"phase 6 seq launches {seq['launches']}")
+    want["taa_round"] = taa["device_iters"]
+    check(taa["launches"] == want,
+          f"phase 6 taa launches {taa['launches']} != K3 once per "
+          f"iteration ({taa['device_iters']})")
+
+
 # --- phase 4: the model kernels through kernels.ops at model widths ----------
 
 
@@ -1301,9 +1578,7 @@ def main() -> int:
     cuda = torch.device("cuda")
     served = serving_path(params, cfg, cuda)
     serving = check_serving(served, params, cfg, cuda)
-    print(f"phase seconds: build {t1 - t0}, taa kernels {t2 - t1}, DiT-XL "
-          f"serving {t3 - t2}, model kernels {t4 - t3}, DiT-XL stepwise "
-          f"serving {time.monotonic() - t4}")
+    t5 = time.monotonic()
 
     launches = {"taa_gram": runs["taa staged"]["launches"]["taa_gram"],
                 "taa_apply": runs["taa staged"]["launches"]["taa_apply"],
@@ -1354,6 +1629,15 @@ def main() -> int:
             achieved_tflops=c["achieved_tflops"],
             achieved_tb_s=c["achieved_tb_s"], case=c["label"],
             cases=[{k: m.get(k) for k in keys} for m in mine]))
+    # phase 6 on a card freed of the earlier phases' params, engines and
+    # inputs
+    del runs, params, served, cases, mine, c
+    free_card()
+    train_checkpoint_serve(ROOT / "build" / "chip_smoke_ckpt")
+    print(f"phase seconds: build {t1 - t0}, taa kernels {t2 - t1}, DiT-XL "
+          f"serving {t3 - t2}, model kernels {t4 - t3}, DiT-XL stepwise "
+          f"serving {t5 - t4}, DiT-XL train-checkpoint-serve "
+          f"{time.monotonic() - t5}")
     # the card again, so that the end of a long log still names it
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": rows}))

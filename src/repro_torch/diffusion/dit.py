@@ -18,6 +18,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import constant, to_device
@@ -87,9 +88,12 @@ def _positions(n: int, d: int, dtype, device) -> torch.Tensor:
                     lambda: to_device(sincos_positions(n, d), dtype, device))
 
 
-def dit_apply(params, cfg: ArchConfig, latents, t, y=None):
+def dit_apply(params, cfg: ArchConfig, latents, t, y=None, *,
+              remat: bool = False):
     """eps prediction.  latents: (B, N, latent_dim); t: (B,) float
-    timesteps; y: (B,) int class labels (None -> the null class)."""
+    timesteps; y: (B,) int class labels (None -> the null class).
+    ``remat`` recomputes each block's activations in the backward pass
+    instead of keeping them (the reference's ``jax.checkpoint(block)``)."""
     b, n, _ = latents.shape
     d = cfg.d_model
     x = latents @ params["in_proj"]
@@ -102,15 +106,38 @@ def dit_apply(params, cfg: ArchConfig, latents, t, y=None):
                        device=x.device)                       # null class
     cond = F.silu(cond + params["y_embed"][y])
 
-    blocks = params["blocks"]
-    for i in range(cfg.num_layers):
-        p = {k: v[i] for k, v in blocks.items() if k != "mlp"}
-        p_mlp = {k: v[i] for k, v in blocks["mlp"].items()}
+    def block(p, p_mlp, x):
         s1, sc1, g1, s2, sc2, g2 = (cond @ p["ada"]).chunk(6, dim=-1)
         h = _dit_attention(p, _modulate(layernorm_noaffine(x), s1, sc1))
         x = x + g1[:, None, :] * h
         h = mlp(p_mlp, _modulate(layernorm_noaffine(x), s2, sc2), "gelu")
-        x = x + g2[:, None, :] * h
+        return x + g2[:, None, :] * h
+
+    # each stacked (L, ...) leaf split into its layers once: the backward of
+    # unbind stacks the layers' grads in one pass, where the backward of
+    # indexing the stack per layer fills a zero copy of the whole stack for
+    # every layer and sums the L copies (O(L^2) traffic)
+    layers = {k: v.unbind(0) for k, v in params["blocks"].items()
+              if k != "mlp"}
+    layers_mlp = {k: v.unbind(0) for k, v in params["blocks"]["mlp"].items()}
+    for i in range(cfg.num_layers):
+        p = {k: v[i] for k, v in layers.items()}
+        p_mlp = {k: v[i] for k, v in layers_mlp.items()}
+        x = (checkpoint(block, p, p_mlp, x, use_reentrant=False) if remat
+             else block(p, p_mlp, x))
     sh, sc = (cond @ params["final_ada"]).chunk(2, dim=-1)
     x = _modulate(layernorm_noaffine(x), sh, sc)
     return x @ params["out_proj"]
+
+
+def dit_loss(params, cfg: ArchConfig, batch, abar_full):
+    """Denoising score-matching MSE in float32.  batch: {"latents": (B,N,L)
+    clean, "t": (B,) int train timesteps, "noise": (B,N,L), "labels": (B,)};
+    ``abar_full`` the (n_train,) float32 alpha-bar table on the device."""
+    ab = abar_full[batch["t"].long()][:, None, None].to(torch.float32)
+    x_t = torch.sqrt(ab) * batch["latents"] + torch.sqrt(1.0 - ab) \
+        * batch["noise"]
+    pred = dit_apply(params, cfg, x_t.to(batch["latents"].dtype),
+                     batch["t"].to(torch.float32), batch["labels"].long(),
+                     remat=True)
+    return torch.mean(torch.square(pred.to(torch.float32) - batch["noise"]))

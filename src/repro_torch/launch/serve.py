@@ -9,6 +9,10 @@ requests per dispatch; sequential DDIM/DDPM is the same engine with the
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --requests 4 \
         --steps-T 12 --solver taa --batch-size 2 --device cpu
 
+``--ckpt DIR`` serves the latest checkpoint in DIR (written by
+``repro_torch.launch.train --ckpt-dir DIR`` or by the JAX package's
+driver) instead of random weights, on either path.
+
 ``--serve-async`` serves a simulated stream through ``repro_torch.serving``
 instead: a Poisson (``--arrival-rate``) or closed-loop (rate 0) stream over
 mixed (T, solver) ``EngineKey``s goes to a ``RequestQueue``, an
@@ -31,15 +35,18 @@ from __future__ import annotations
 
 import argparse
 import time
+from pathlib import Path
 
 import numpy as np
 
+from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs.registry import get_arch
 from repro_torch.core import ddim_coeffs, ddpm_coeffs
 from repro_torch.device import resolve_device
 from repro_torch.diffusion.convert import dit_init
 from repro_torch.diffusion.dit import dit_apply
 from repro_torch.obs import Observability
+from repro_torch.runtime import StragglerMitigator
 from repro_torch.sampling import SampleRequest, SamplingEngine, get_sampler
 from repro_torch.serving import (Batcher, BatchingPolicy, EngineKey,
                                  EngineRegistry, RefinePlanner, RefinePolicy,
@@ -64,14 +71,17 @@ def serve_batch(engine: SamplingEngine, requests, *, batch_size=None):
     """Run requests through the engine ``batch_size`` at a time.
 
     requests: list of SampleRequest, or (label, seed) tuples.
-    Returns (stacked x0 latents, per-request stats).
+    Returns (stacked x0 latents, per-request stats, straggler mitigator).
     """
     requests = [r if isinstance(r, SampleRequest) else SampleRequest(*r)
                 for r in requests]
+    straggler = StragglerMitigator()
     results = engine.run_batch(requests, batch_size=batch_size)
+    for dispatch in engine.last_dispatches:  # one latency sample a dispatch
+        straggler.record(dispatch["wall_s"])
     stats = [{"label": res.request.label, "iters": res.iters, "nfe": res.nfe,
               "wall_s": res.wall_s} for res in results]
-    return np.stack([res.x0 for res in results]), stats
+    return np.stack([res.x0 for res in results]), stats, straggler
 
 
 def resolve_coeffs(args, T: int):
@@ -336,6 +346,9 @@ def main(argv=None):
                    help="write a Chrome-trace JSON of the --serve-async "
                         "run: per-ticket span chains, engine spans and "
                         "per-lane residual curves (tools/obs_report.py)")
+    p.add_argument("--ckpt", default=None,
+                   help="trained DiT checkpoint dir (repro_torch.launch."
+                        "train --ckpt-dir, or the JAX package's)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (cpu for a host run)")
@@ -346,6 +359,12 @@ def main(argv=None):
     if args.smoke:
         cfg = cfg.reduced()
     params = dit_init(cfg, args.seed, device)
+    if args.ckpt:
+        _, tree = CheckpointManager(Path(args.ckpt)).restore(
+            {"step": 0, "params": params})
+        if tree is not None:
+            params = tree["params"]
+            print(f"restored checkpoint step {tree['step']}")
     if args.serve_async:
         return serve_async(args, cfg, params, device)
 
@@ -357,8 +376,8 @@ def main(argv=None):
     requests = [SampleRequest(label=int(rng.integers(0, cfg.num_classes)),
                               seed=int(rng.integers(1 << 30)))
                 for _ in range(args.requests)]
-    outs, stats = serve_batch(engine, requests,
-                              batch_size=args.batch_size or None)
+    outs, stats, straggler = serve_batch(engine, requests,
+                                         batch_size=args.batch_size or None)
     for st in stats:
         # wall_s is the wall time of the DISPATCH the request rode in (its
         # latency), not exclusive per-request compute — batch members share it
@@ -368,7 +387,8 @@ def main(argv=None):
     seq_steps = coeffs.T
     mean_iters = np.mean([s["iters"] for s in stats])
     print(f"mean parallel steps {mean_iters:.1f} vs sequential {seq_steps} "
-          f"=> {seq_steps / mean_iters:.1f}x step reduction")
+          f"=> {seq_steps / mean_iters:.1f}x step reduction; "
+          f"p50 deadline {straggler.deadline()}")
     print(f"batched throughput {engine.throughput():.2f} req/s "
           f"({engine.stats['requests']} requests / "
           f"{engine.stats['batches']} batches)")
