@@ -86,12 +86,34 @@ is not 0):
    and peak memory.  The checkpoint directory (``build/chip_smoke_ckpt``)
    is deleted at the end.
 
-Then one JSON line of per-kernel numbers, and last the line
+7. qwen3-0.6b at full width (28 layers, d 1024, 16/8 heads of 128, d_ff
+   3072, vocab 151936, tied embeddings, qk-norm), weights from numpy seed
+   0, on a card freed of phase 6: (a) as a ParaTAA denoiser through the
+   DiffusionWrapper (latent 8, 16 tokens, out_proj N(0, 0.02^2), float32
+   with TF32 off, DDIM T=50): ``run`` with the fused round, staged, and
+   ``sequential_sample``, each solve under sync-debug mode "error", every
+   launch count set to 0 just before each run and read just after (K3 once
+   an iteration fused, K1 and K2 staged, none sequential); x0 within 2e-2
+   of sequential; iterations, wall and the denoiser's ms an iteration
+   (CUDA events) printed.  (c) as a bf16 LM, batch 4: prefill 3072 tokens
+   (above 2048: the blocked attention), 32 ``decode_step``s (the last
+   under sync-debug mode "error"), their logits within 2e-2 of the logits'
+   scale of ``forward``'s on the same 3104 tokens, and of a float32
+   ``forward``'s of the same weights; prefill ms, decode ms a token and
+   the cache's bytes printed.  (b) two float32 steps of
+   ``repro_torch.launch.train --arch qwen3-0.6b --batch 8 --seq 128`` with
+   a checkpoint through ``build/chip_smoke_lm_ckpt`` (deleted after):
+   finite losses, the params read back ``torch.equal`` to the trained ones,
+   no kernel launched; step wall, forward+backward and update ms printed.
+
+Then one JSON line of per-kernel numbers (K1-K3 with ``wrapper_launches``,
+phase 7's), and last the line
 ``{"ok": true, "device": {...}}``.  Without CUDA, or run from a directory
 without the repository's ``src/``, it fails before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -403,29 +425,51 @@ def time_kernels():
 # --- phase 3: the main path at full DiT-XL width ----------------------------
 
 
-class TimedEps:
-    """Wraps the engine's eps_apply with CUDA events around each DiT call."""
+class TimedCalls:
+    """Wraps a function with CUDA events around each call, and the host's
+    clock (the call's enqueue: it waits for nothing)."""
 
     def __init__(self, fn):
         self.fn = fn
         self.events = []
+        self.host_ms = []
 
-    def __call__(self, params, x, taus, labels):
+    def __call__(self, *args):
         import torch
 
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        t0 = time.monotonic()
         start.record()
-        out = self.fn(params, x, taus, labels)
+        out = self.fn(*args)
         stop.record()
+        self.host_ms.append((time.monotonic() - t0) * 1e3)
         self.events.append((start, stop))
         return out
 
-    def total_ms(self) -> float:
+    def ms(self) -> list:
         import torch
 
         torch.cuda.synchronize()
-        return sum(a.elapsed_time(b) for a, b in self.events)
+        return [a.elapsed_time(b) for a, b in self.events]
+
+    def total_ms(self) -> float:
+        return sum(self.ms())
+
+
+class sync_debug_error:
+    """``torch.cuda.set_sync_debug_mode("error")`` inside the block: an
+    operation that waits for the card raises."""
+
+    def __enter__(self):
+        import torch
+
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.set_sync_debug_mode(0)
 
 
 def main_path():
@@ -468,28 +512,26 @@ def main_path():
     return runs, params, cfg
 
 
-def strict_solves(engine, profiled: bool = False):
-    """Runs each of ``engine``'s solves (not the packing, not ``collect``)
-    under ``torch.cuda.set_sync_debug_mode("error")``: any wait on the card
-    other than the solver's counted poll (an event wait, which the mode
-    does not flag) raises.  ``profiled`` marks each solve's span for a
-    profiler trace."""
-    import torch
+def strictly(fn, profiled: bool = False):
+    """``fn`` run under ``torch.cuda.set_sync_debug_mode("error")``: any
+    wait on the card other than the solver's counted poll (an event wait,
+    which the mode does not flag) raises.  ``profiled`` marks each call's
+    span ("solve") for a profiler trace."""
     from torch.profiler import record_function
 
-    solve = engine._solve
-
     def strict(*args, **kw):
-        torch.cuda.set_sync_debug_mode("error")
-        try:
+        with sync_debug_error():
             if profiled:
                 with record_function("solve"):
-                    return solve(*args, **kw)
-            return solve(*args, **kw)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
+                    return fn(*args, **kw)
+            return fn(*args, **kw)
+    return strict
 
-    engine._solve = strict
+
+def strict_solves(engine, profiled: bool = False):
+    """Runs each of ``engine``'s solves (not the packing, not ``collect``)
+    ``strictly``."""
+    engine._solve = strictly(engine._solve, profiled)
     return engine
 
 
@@ -503,7 +545,7 @@ def serve_once(label, params, cfg, coeffs, spec, requests):
     from repro_torch.launch import serve
     from repro_torch.sampling import SamplingEngine
 
-    timed = TimedEps(serve.make_eps_apply(cfg))
+    timed = TimedCalls(serve.make_eps_apply(cfg))
     engine = strict_solves(SamplingEngine(
         timed, params, coeffs, spec,
         sample_shape=(NUM_TOKENS, cfg.latent_dim),
@@ -553,7 +595,7 @@ def trace_dispatch(label, params, cfg, coeffs, spec, requests):
     from repro_torch.launch import serve
     from repro_torch.sampling import SamplingEngine
 
-    timed = TimedEps(serve.make_eps_apply(cfg))
+    timed = TimedCalls(serve.make_eps_apply(cfg))
     engine = strict_solves(SamplingEngine(
         timed, params, coeffs, spec,
         sample_shape=(NUM_TOKENS, cfg.latent_dim),
@@ -1222,6 +1264,310 @@ def train_checkpoint_serve(ckpt_dir: Path):
           f"iteration ({taa['device_iters']})")
 
 
+# --- phase 7: qwen3-0.6b at full width, as a ParaTAA denoiser and as an LM --
+
+#: phase 7's architecture, wrapper geometry (latent dim, tokens; the
+#: example's), the scale of the wrapper's zero-initialized out_proj, and
+#: the DDIM steps
+LM_ARCH, WRAP_LATENT, WRAP_TOKENS, WRAP_OUT_SCALE, WRAP_T = (
+    "qwen3-0.6b", 8, 16, 0.02, 50)
+#: (b): the train driver's flags beside --ckpt-dir (the reference's batch
+#: and sequence defaults, two steps, one save: the final one)
+LM_TRAIN_FLAGS = ["--arch", LM_ARCH, "--batch", "8", "--seq", "128",
+                  "--steps", "2", "--ckpt-every", "1000", "--log-every", "1"]
+#: (c): batch, prompt tokens (above the blocked-attention threshold of
+#: 2048) and decode steps
+LM_BATCH, LM_PROMPT, LM_DECODE = 4, 3072, 32
+#: qwen3-0.6b's parameters (tied embeddings; ``build_defs``)
+QWEN3_PARAMS = 596_049_920
+
+
+@contextlib.contextmanager
+def strict_parataa():
+    """Runs each ParaTAA solve (``core.parataa.sample``, which ``run``
+    calls) ``strictly`` within the block; ``run``'s reads of the result
+    afterwards are outside it."""
+    from repro_torch.core import parataa
+
+    real = parataa.sample
+    parataa.sample = strictly(real)
+    try:
+        yield
+    finally:
+        parataa.sample = real
+
+
+def wrapper_denoiser(cfg, params):
+    """(a): ParaTAA fused, staged and sequential DDIM (T=50) on one request
+    of 16 latent tokens with the qwen3 wrapper as eps_theta, float32 with
+    TF32 off: a warm-up pass of the three, then the measured one, launches
+    read per run; each solve under sync-debug mode."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import ddim_coeffs
+    from repro_torch.diffusion import dit
+    from repro_torch.sampling import (draw_noises, get_sampler, run,
+                                      sequential_sample)
+
+    cuda = torch.device("cuda")
+    coeffs = ddim_coeffs(WRAP_T)
+    xi = draw_noises(SEED, coeffs, (WRAP_TOKENS, WRAP_LATENT), device=cuda)
+
+    def eps(x, taus):
+        return dit.wrapper_apply(params, cfg, x, taus)
+
+    def solve(spec):
+        timed = TimedCalls(eps)
+        reset_all_launches()
+        t0 = time.monotonic()
+        if spec is None:
+            with sync_debug_error():
+                x0 = sequential_sample(timed, coeffs, xi)
+            iters = nfe = WRAP_T
+            converged = True
+        else:
+            with strict_parataa():
+                res = run(spec, timed, coeffs, xi)
+            x0, iters, nfe, converged = (res.x0, res.iters, res.nfe,
+                                         res.converged)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        return dict(x0=x0.float().cpu().numpy(), iters=iters, nfe=nfe,
+                    converged=converged, wall_s=wall,
+                    launches=all_launches(), eps_ms=timed.ms(),
+                    eps_host_ms=timed.host_ms)
+
+    specs = (("fused", get_sampler("taa", fuse_round=True)),
+             ("staged", get_sampler("taa")), ("seq", None))
+    with torch.no_grad():
+        warm_s = time.monotonic()
+        for _, spec in specs:       # cuBLAS picks its kernels per shape
+            solve(spec)
+        print(f"phase 7 wrapper warm-up pass {time.monotonic() - warm_s} s")
+        runs = {}
+        for label, spec in specs:
+            r = runs[label] = solve(spec)
+            ms = r["eps_ms"]
+            print(f"phase 7 wrapper {label}: iters {r['iters']} nfe "
+                  f"{r['nfe']} of T={WRAP_T}, wall {r['wall_s']} s, "
+                  f"{len(ms)} denoiser calls, denoiser "
+                  f"{sum(ms) / max(r['iters'], 1)} ms an iteration (median "
+                  f"call {statistics.median(ms)} ms; host enqueue "
+                  f"{statistics.median(r['eps_host_ms'])} ms), kernel "
+                  f"launches {r['launches']}")
+            check(r["converged"], f"phase 7 {label}: not converged")
+        # one denoiser call at each run's shape under the profiler: what a
+        # call costs the card, apart from its launches
+        rows = runs["staged"]["nfe"] // runs["staged"]["iters"]
+        for n in (rows, 1):
+            _, ops, busy = profiled(lambda: eps(
+                xi[:1].expand(n, -1, -1), torch.zeros(n, device=cuda)))
+            print(f"phase 7 wrapper one denoiser call on {n} x "
+                  f"{WRAP_TOKENS} tokens under torch.profiler: {ops} "
+                  f"device ops, busy {busy} ms")
+    seq = runs["seq"]["x0"]
+    zero = {name: 0 for name in all_launches()}
+    check(runs["seq"]["launches"] == zero,
+          f"phase 7 seq launches {runs['seq']['launches']}")
+    for label, want in (("fused", {"taa_round"}),
+                        ("staged", {"taa_gram", "taa_apply"})):
+        r = runs[label]
+        err = float(np.max(np.abs(r["x0"] - seq)) / np.max(np.abs(seq)))
+        r["err"] = err
+        print(f"phase 7 wrapper {label}: x0 against sequential rel err "
+              f"{err} (bound 2e-2); wall {r['wall_s']} s against "
+              f"sequential's {runs['seq']['wall_s']} s")
+        check(r["x0"].shape == (WRAP_TOKENS, WRAP_LATENT)
+              and np.all(np.isfinite(r["x0"])), f"phase 7 {label} x0")
+        check(err < 2e-2, f"phase 7 {label} x0 off sequential by {err}")
+        expect = {k: (r["iters"] if k in want else 0) for k in zero}
+        check(r["launches"] == expect,
+              f"phase 7 {label} launches {r['launches']} != {expect}")
+    return runs
+
+
+def lm_train(ckpt_dir: Path):
+    """(b): two float32 steps of ``repro_torch.launch.train --arch
+    qwen3-0.6b --batch 8 --seq 128`` with a checkpoint through
+    ``ckpt_dir`` (deleted after), the saved params read back."""
+    import shutil
+
+    import torch
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.launch import train
+    from repro_torch.tree import leaves
+
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        reset_all_launches()
+        torch.cuda.reset_peak_memory_stats()
+        res = train.run(LM_TRAIN_FLAGS + ["--ckpt-dir", str(ckpt_dir)])
+        launches = all_launches()
+        peak = torch.cuda.max_memory_allocated()
+        for st in res.step_ms:
+            print(f"phase 7 train step {st}")
+        print(f"phase 7 train: losses {res.losses}, kernel launches "
+              f"{launches}, peak memory allocated {peak} B")
+        check(len(res.losses) == 2
+              and all(math.isfinite(x) for x in res.losses),
+              f"phase 7 train losses {res.losses}")
+        check(not any(launches.values()),
+              f"phase 7 train launched {launches}")
+        step_dir = ckpt_dir / "step_00000002"
+        nbytes = sum(p.stat().st_size for p in step_dir.iterdir())
+        params = res.state["params"]
+        res.state = None
+        free_card()
+        t0 = time.monotonic()
+        step, tree = CheckpointManager(ckpt_dir).restore(
+            {"step": 0, "params": params})
+        read_s = time.monotonic() - t0
+        same = all(torch.equal(x, y) for x, y in zip(
+            leaves(tree["params"]), leaves(params)))
+        n_params = sum(x.numel() for x in leaves(params))
+        print(f"phase 7 checkpoint step {step}: {nbytes} B on disk, "
+              f"{n_params} parameters; params read back in {read_s} s, "
+              f"equal to the trained ones (torch.equal): {same}")
+        check(step == 2 and same, "phase 7 restored params != trained")
+        check(n_params == QWEN3_PARAMS, f"phase 7: {n_params} parameters")
+        return res.step_ms
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def profiled(fn):
+    """(fn's result, the number of device ops it ran, their summed device
+    ms) under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return out, len(spans), sum(spans) / 1e3
+
+
+def lm_prefill_decode(cfg, params):
+    """(c): bf16, batch 4: prefill 3072 tokens (the blocked attention), 32
+    decode steps, their logits against ``forward``'s on the same 3104
+    tokens, and both against a float32 ``forward`` of the same weights
+    (widened); one decode step under sync-debug mode."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import backbone
+    from repro_torch.tree import map_tree
+
+    cuda = torch.device("cuda")
+    total = LM_PROMPT + LM_DECODE
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LM_BATCH, total)).astype(np.int32)).to(cuda)
+    cache = backbone.init_cache(cfg, LM_BATCH, total, torch.bfloat16, cuda)
+    cache_bytes = sum(x.numel() * x.element_size() for x in cache.values())
+    reset_all_launches()
+    with torch.no_grad():
+        prefill = TimedCalls(lambda: backbone.prefill(
+            params, cfg, tokens[:, :LM_PROMPT], cache))
+        for _ in range(2):     # the same slots again: the second is timed
+            last, _ = prefill()
+        step = TimedCalls(lambda t: backbone.decode_step(params, cfg, t,
+                                                         cache))
+        outs = []
+        for i in range(LM_DECODE):
+            tok = tokens[:, LM_PROMPT + i:LM_PROMPT + i + 1]
+            if i == LM_DECODE - 2:
+                (logits, _), device_ops, busy_ms = profiled(
+                    lambda: step(tok))
+            elif i == LM_DECODE - 1:
+                torch.cuda.synchronize()
+                with sync_debug_error():
+                    logits, _ = step(tok)
+            else:
+                logits, _ = step(tok)
+            outs.append(logits)
+        dec = torch.cat(outs, dim=1).float()
+        ref, _ = backbone.forward(params, cfg, tokens)
+        ref_last = ref[:, LM_PROMPT - 1].float()
+        ref = ref[:, LM_PROMPT:].float()
+        ref32, _ = backbone.forward(map_tree(lambda x: x.float(), params),
+                                    cfg, tokens)
+        ref32 = ref32[:, LM_PROMPT:].clone()
+    launches = all_launches()
+    scale = float(ref.abs().max())
+    err = float((dec - ref).abs().max()) / scale
+    err_last = float((last[:, 0].float() - ref_last).abs().max()) / scale
+    scale32 = float(ref32.abs().max())
+    err32 = float((dec - ref32).abs().max()) / scale32
+    fwd_err32 = float((ref - ref32).abs().max()) / scale32
+    index = int(cache["index"][0])
+    dms = step.ms()[1:LM_DECODE - 2]       # not the profiled or strict
+    host = step.host_ms[1:LM_DECODE - 2]
+    print(f"phase 7 LM bf16 batch {LM_BATCH}: prefill {LM_PROMPT} tokens "
+          f"{prefill.ms()[-1]} ms (first {prefill.ms()[0]} ms); decode "
+          f"{statistics.median(dms)} ms a token on the card, host enqueue "
+          f"{statistics.median(host)} ms (medians of steps 2-"
+          f"{LM_DECODE - 2}; first {step.ms()[0]} ms); one step under "
+          f"torch.profiler: {device_ops} device ops, busy {busy_ms} ms; "
+          f"cache {cache_bytes} B, index "
+          f"{index}; decode logits against forward's rel err {err}, the "
+          f"prefill's last {err_last} (bound 2e-2, logits' scale {scale}); "
+          f"against the float32 forward's: decode {err32} (bound 2e-2), "
+          f"the bf16 forward {fwd_err32} (logits' scale {scale32}); "
+          f"kernel launches {launches}; the last decode step under "
+          f"sync-debug mode \"error\"")
+    check(index == total, f"phase 7 cache index {index}")
+    check(bool(torch.isfinite(dec).all()), "phase 7 decode logits finite")
+    check(err < 2e-2 and err_last < 2e-2,
+          f"phase 7 decode off forward by {err} / {err_last}")
+    check(err32 < 2e-2, f"phase 7 decode off the float32 forward by {err32}")
+    check(not any(launches.values()), f"phase 7 LM launched {launches}")
+    return dict(prefill_ms=prefill.ms()[-1], decode_ms=statistics.median(dms),
+                err=err, err32=err32, fwd_err32=fwd_err32,
+                cache_bytes=cache_bytes)
+
+
+def backbone_path(ckpt_dir: Path):
+    """Phase 7: qwen3-0.6b at full width (28 layers, d 1024, 16/8 heads of
+    128, d_ff 3072, vocab 151936, tied, qk-norm), weights from numpy seed
+    0: (a) as the wrapper denoiser, (c) as a bf16 LM, then (b) trained by
+    the driver on a card freed of both."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.diffusion.convert import wrapper_init
+    from repro_torch.tree import map_tree
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_arch(LM_ARCH)
+    t0 = time.monotonic()
+    params = wrapper_init(cfg, WRAP_LATENT, SEED, torch.device("cuda"),
+                          out_scale=WRAP_OUT_SCALE)
+    torch.cuda.synchronize()
+    print(f"phase 7 {LM_ARCH}: {cfg.num_layers} layers d={cfg.d_model} "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.head_dim} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab_size}, wrapper params made in "
+          f"{time.monotonic() - t0} s (numpy seed {SEED}, out_proj N(0, "
+          f"{WRAP_OUT_SCALE}^2))")
+    wrap = wrapper_denoiser(cfg, params)
+    lm = map_tree(lambda x: x.to(torch.bfloat16), params["backbone"])
+    del params
+    free_card()
+    decode = lm_prefill_decode(cfg, lm)
+    del lm
+    free_card()
+    steps = lm_train(ckpt_dir)
+    return dict(wrap=wrap, decode=decode, steps=steps)
+
+
 # --- phase 4: the model kernels through kernels.ops at model widths ----------
 
 
@@ -1634,10 +1980,17 @@ def main() -> int:
     del runs, params, served, cases, mine, c
     free_card()
     train_checkpoint_serve(ROOT / "build" / "chip_smoke_ckpt")
+    t6 = time.monotonic()
+    free_card()
+    lm = backbone_path(ROOT / "build" / "chip_smoke_lm_ckpt")
+    for name in ("taa_gram", "taa_apply", "taa_round"):
+        run = lm["wrap"]["fused" if name == "taa_round" else "staged"]
+        next(r for r in rows if r["name"] == name)["wrapper_launches"] = \
+            run["launches"][name]
     print(f"phase seconds: build {t1 - t0}, taa kernels {t2 - t1}, DiT-XL "
           f"serving {t3 - t2}, model kernels {t4 - t3}, DiT-XL stepwise "
-          f"serving {t5 - t4}, DiT-XL train-checkpoint-serve "
-          f"{time.monotonic() - t5}")
+          f"serving {t5 - t4}, DiT-XL train-checkpoint-serve {t6 - t5}, "
+          f"qwen3-0.6b wrapper/LM {time.monotonic() - t6}")
     # the card again, so that the end of a long log still names it
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": rows}))

@@ -1,12 +1,30 @@
-"""Architecture configuration (a copy of ``repro.configs.base.ArchConfig``).
+"""Architecture + input-shape configuration (a copy of the JAX package's
+``repro.configs.base``).
 
-Every architecture is a frozen ``ArchConfig``; ``reduced()`` produces the
-smoke-test-sized config of the same family (small widths/depths).
+Every architecture is a frozen ``ArchConfig``; every input shape a
+``ShapeConfig``.  ``reduced()`` produces the smoke-test-sized config of the
+same family (small widths/depths).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +78,7 @@ class ArchConfig:
     seq_parallel: bool = False
     kv_quant: bool = False
 
-    # --- diffusion (DiT) ------------------------------------------------------
+    # --- diffusion (DiT & DiffusionWrapper) ------------------------------------------------------
     is_diffusion: bool = False
     latent_dim: int = 0  # per-token continuous latent dim (DiT patch dim)
     num_classes: int = 0  # class-conditional diffusion
@@ -68,6 +86,10 @@ class ArchConfig:
     @property
     def q_dim(self) -> int:
         return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
 
     @property
     def is_moe(self) -> bool:
@@ -80,6 +102,36 @@ class ArchConfig:
     @property
     def is_hybrid(self) -> bool:
         return self.rglru_ratio > 0
+
+    @property
+    def d_inner(self) -> int:  # mamba2 inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Per-layer block kind ("attn" | "rglru" | "ssm")."""
+        if self.is_ssm:
+            return ("ssm",) * self.num_layers
+        if self.is_hybrid:
+            return tuple(
+                "attn" if (i % self.rglru_ratio == self.rglru_ratio - 1)
+                else "rglru" for i in range(self.num_layers))
+        return ("attn",) * self.num_layers
+
+    def supports_shape(self, shape: ShapeConfig) -> Tuple[bool, str]:
+        """Whether this (arch, shape) cell runs; else reason for the skip."""
+        if shape.kind == "decode" and shape.seq_len > 65536:
+            # long_500k: sub-quadratic archs only (SSM / hybrid / SWA)
+            sub_quadratic = (self.is_ssm or self.is_hybrid
+                             or self.attention_kind == "swa")
+            if not sub_quadratic:
+                return False, (
+                    "long_500k skipped: pure full-attention arch "
+                    "(dense 524288-token KV cache is quadratic serving)")
+        return True, ""
 
     def reduced(self) -> "ArchConfig":
         """Smoke-test-sized config of the same family (CPU, 1 device)."""
@@ -104,3 +156,33 @@ class ArchConfig:
         if self.m_rope:
             changes.update(m_rope_sections=(4, 6, 6))
         return dataclasses.replace(self, **changes)
+
+    def param_count(self, active_only: bool = False) -> int:
+        """Rough parameter count (the reference's formula, for 6*N*D)."""
+        d, L = self.d_model, self.num_layers
+        embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        if self.is_diffusion:   # io + cls + temb
+            embed = self.latent_dim * d * 2 + self.num_classes * d + d * d
+        total = embed
+        for kind in self.layer_kinds():
+            if kind == "attn":
+                total += (d * self.q_dim + 2 * d * self.kv_dim
+                          + self.q_dim * d)
+            elif kind == "rglru":
+                # griffin recurrent block: in-proj (2 branches), conv,
+                # gates, out
+                total += (2 * d * d + self.rglru_conv_width * d
+                          + 2 * d * d // 8 + d * d + 2 * d)
+            elif kind == "ssm":
+                din, n, g = self.d_inner, self.ssm_state, self.ssm_ngroups
+                total += d * (2 * din + 2 * g * n + self.ssm_nheads) + din * d
+                total += self.ssm_conv_width * (din + 2 * g * n)
+            if kind != "ssm":
+                if self.is_moe:
+                    per_expert = 3 * d * self.moe_d_ff
+                    n_e = self.moe_top_k if active_only else self.num_experts
+                    total += per_expert * (n_e + self.num_shared_experts)
+                    total += d * self.num_experts  # router
+                elif self.d_ff:
+                    total += 3 * d * self.d_ff
+        return total

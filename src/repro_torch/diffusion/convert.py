@@ -1,92 +1,44 @@
-"""DiT parameters from numpy: the JAX package's param tree in, the port's
-dict of tensors out — and a numpy-seeded initializer for random weights.
+"""DiT and DiffusionWrapper parameters from numpy: the JAX package's param
+tree in, the port's dict of tensors out — and numpy-seeded initializers
+for random weights.
 
 The JAX tree arrives as nested dicts of numpy arrays (the caller does the
-``np.asarray``; nothing here imports jax), ``blocks`` stacked on a leading
-layer axis.  Every leaf is checked against :func:`dit_defs`.
+``np.asarray``; nothing here imports jax), stacked leaves on a leading
+layer axis.  Every leaf is checked against :func:`dit_defs` (or
+:func:`wrapper_defs`).
 """
 from __future__ import annotations
 
 from typing import Dict
 
-import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.diffusion.dit import ParamSpec, dit_defs
+from repro_torch.device import DeviceLike
+from repro_torch.diffusion.dit import dit_defs, wrapper_defs
+from repro_torch.models.pdefs import init_numpy, params_from_numpy
 
 #: the adaLN-zero leaves (zero-initialized in the reference)
 ADA_ZERO = ("ada", "final_ada", "out_proj")
-
-
-def _walk(defs: Dict, prefix=()):
-    for key in sorted(defs):
-        node = defs[key]
-        if isinstance(node, ParamSpec):
-            yield prefix + (key,), node
-        else:
-            yield from _walk(node, prefix + (key,))
-
-
-def _get(tree, path):
-    for key in path:
-        tree = tree[key]
-    return tree
-
-
-def _set(tree, path, value):
-    for key in path[:-1]:
-        tree = tree.setdefault(key, {})
-    tree[path[-1]] = value
 
 
 def dit_params_from_numpy(tree, cfg: ArchConfig, device: DeviceLike = None,
                           dtype=torch.float32) -> Dict:
     """Nested dict of numpy arrays (JAX layout) -> nested dict of tensors on
     ``device`` (None = cuda).  Raises on a missing leaf or a wrong shape."""
-    dev = resolve_device(device)
-    out: Dict = {}
-    for path, spec in _walk(dit_defs(cfg)):
-        arr = np.asarray(_get(tree, path))
-        if tuple(arr.shape) != spec.shape:
-            raise ValueError(f"DiT param {'/'.join(path)}: shape "
-                             f"{tuple(arr.shape)} != {spec.shape}")
-        if arr.dtype.name == "bfloat16":     # ml_dtypes bf16 from JAX
-            arr = arr.astype(np.float32)
-        if not (arr.flags.writeable and arr.flags.c_contiguous):
-            arr = np.array(arr)              # torch wants a writable buffer
-        _set(out, path, torch.from_numpy(arr).to(device=dev, dtype=dtype))
-    return out
+    return params_from_numpy(dit_defs(cfg), tree, device, dtype, "DiT param")
 
 
 def dit_init_numpy(cfg: ArchConfig, seed: int, *,
                    ada_scale: float = 0.0) -> Dict:
-    """Random DiT weights from ``np.random.default_rng(seed)``: lecun =
-    N(0, 1/fan_in) over the dimensions each weight contracts, normal =
-    N(0, 0.02^2).  (The JAX initializer takes fan_in as the second-to-last
-    dimension, the head count for wq/wk/wv, which saturates the softmax of
-    a random DiT and makes it chaotic; the port's random weights do not
-    copy that.)  The adaLN-zero leaves are zeros, as in the reference,
-    unless ``ada_scale`` > 0 makes them N(0, ada_scale^2) — with zeros eps
-    is identically 0 and the transformer never shapes the output."""
-    rng = np.random.default_rng(seed)
-    tree: Dict = {}
-    for path, spec in _walk(dit_defs(cfg)):
-        if spec.init == "zeros" and not (ada_scale > 0
-                                         and path[-1] in ADA_ZERO):
-            arr = np.zeros(spec.shape, np.float32)
-        else:
-            if spec.init == "zeros":
-                std = ada_scale
-            elif spec.init == "lecun":
-                std = 1.0 / np.sqrt(spec.fan_in)
-            else:
-                std = 0.02
-            arr = rng.standard_normal(spec.shape, dtype=np.float32)
-            arr *= np.float32(std)
-        _set(tree, path, arr)
-    return tree
+    """Random DiT weights from ``np.random.default_rng(seed)``
+    (:func:`repro_torch.models.pdefs.init_numpy`: lecun over the contracted
+    dimensions, normal N(0, 0.02^2)).  The adaLN-zero leaves are zeros, as
+    in the reference, unless ``ada_scale`` > 0 makes them N(0,
+    ada_scale^2) — with zeros eps is identically 0 and the transformer
+    never shapes the output."""
+    return init_numpy(dit_defs(cfg), seed,
+                      {name: ada_scale for name in ADA_ZERO})
 
 
 def dit_init(cfg: ArchConfig, seed: int, device: DeviceLike = None, *,
@@ -95,3 +47,32 @@ def dit_init(cfg: ArchConfig, seed: int, device: DeviceLike = None, *,
     return dit_params_from_numpy(dit_init_numpy(cfg, seed,
                                                 ada_scale=ada_scale),
                                  cfg, device, dtype)
+
+
+def wrapper_params_from_numpy(tree, cfg: ArchConfig, latent_dim: int,
+                              device: DeviceLike = None,
+                              dtype=torch.float32) -> Dict:
+    """The JAX package's wrapper tree (``wrapper_defs``) -> tensors on
+    ``device`` (None = cuda), every leaf checked."""
+    return params_from_numpy(wrapper_defs(cfg, latent_dim), tree, device,
+                             dtype, "wrapper param")
+
+
+def wrapper_init_numpy(cfg: ArchConfig, latent_dim: int, seed: int, *,
+                       out_scale: float = 0.0) -> Dict:
+    """Random wrapper weights from ``np.random.default_rng(seed)``.
+    ``out_proj`` is zeros, as in the reference (eps = 0: ParaTAA converges
+    in one iteration), unless ``out_scale`` > 0 makes it N(0,
+    out_scale^2)."""
+    return init_numpy(wrapper_defs(cfg, latent_dim), seed,
+                      {"out_proj": out_scale})
+
+
+def wrapper_init(cfg: ArchConfig, latent_dim: int, seed: int,
+                 device: DeviceLike = None, *, out_scale: float = 0.0,
+                 dtype=torch.float32) -> Dict:
+    """Random wrapper parameters on ``device`` (see
+    :func:`wrapper_init_numpy`)."""
+    return wrapper_params_from_numpy(
+        wrapper_init_numpy(cfg, latent_dim, seed, out_scale=out_scale),
+        cfg, latent_dim, device, dtype)

@@ -14,7 +14,7 @@ to XLA.
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
@@ -24,14 +24,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import constant, to_device
 from repro_torch.models.layers import (layernorm_noaffine, mlp,
                                        sincos_positions, sinusoidal_embed)
+from repro_torch.models.pdefs import ParamSpec
 
 TEMB_DIM = 256
-
-
-class ParamSpec(NamedTuple):
-    shape: Tuple[int, ...]
-    init: str         # normal | zeros | lecun (the JAX package's inits)
-    fan_in: int = 0   # lecun: the size of the dimensions the weight contracts
 
 
 def dit_defs(cfg: ArchConfig) -> Dict:
@@ -141,3 +136,46 @@ def dit_loss(params, cfg: ArchConfig, batch, abar_full):
                      batch["t"].to(torch.float32), batch["labels"].long(),
                      remat=True)
     return torch.mean(torch.square(pred.to(torch.float32) - batch["noise"]))
+
+
+# ---------------------------------------------------------------------------
+# DiffusionWrapper: any LM backbone as a latent-sequence denoiser
+# ---------------------------------------------------------------------------
+
+
+def wrapper_defs(cfg: ArchConfig, latent_dim: int) -> Dict:
+    """The wrapper's parameter tree: the backbone's (``build_defs``, its
+    embedding and head included, as the reference keeps them), the latent
+    in/out projections and the timestep MLP.  ``out_proj`` starts at zeros,
+    as in the reference: an untrained wrapper returns eps = 0."""
+    from repro_torch.models.backbone import build_defs
+
+    d = cfg.d_model
+    return {
+        "backbone": build_defs(cfg),
+        "in_proj": ParamSpec((latent_dim, d), "lecun", latent_dim),
+        "t_mlp1": ParamSpec((TEMB_DIM, d), "lecun", TEMB_DIM),
+        "t_mlp2": ParamSpec((d, d), "lecun", d),
+        "out_proj": ParamSpec((d, latent_dim), "zeros"),
+    }
+
+
+def wrapper_apply(params, cfg: ArchConfig, latents, t, *,
+                  remat: bool = False):
+    """latents: (B, N, latent_dim); t: (B,) -> eps (B, N, latent_dim).
+
+    The backbone runs in its native mode (causal for attention archs): a
+    causal denoiser over latent token sequences (diffusion-forcing style);
+    ParaTAA is agnostic to the denoiser's internal structure.  ``remat``
+    recomputes each layer in the backward pass."""
+    from repro_torch.models.backbone import default_positions, trunk
+
+    b, n, _ = latents.shape
+    x = latents @ params["in_proj"]
+    temb = sinusoidal_embed(t, TEMB_DIM).to(x.dtype)
+    cond = F.silu(temb @ params["t_mlp1"]) @ params["t_mlp2"]
+    x = x + cond[:, None, :]
+    pos = default_positions(cfg, b, n, x.device)
+    h, _, _ = trunk(params["backbone"], cfg, x, pos, mode="train",
+                    remat=remat)
+    return h @ params["out_proj"]

@@ -1,6 +1,6 @@
-"""The step functions of the drivers (train / ParaTAA serve), as plain
-functions on trees of tensors — the DiT part of the JAX package's
-``repro.launch.steps``.
+"""The step functions of the drivers (train / prefill / decode / ParaTAA
+serve), as plain functions on trees of tensors — the JAX package's
+``repro.launch.steps`` without its abstract (mesh) specs.
 
 A train step updates the params and optimizer state in place (the
 counterpart of the reference's donated buffers) and returns its metrics as
@@ -16,17 +16,21 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import constant, to_device
 from repro_torch.diffusion import dit as dit_mod
 from repro_torch.diffusion.schedules import make_schedule
+from repro_torch.models import backbone
 from repro_torch.optim import AdamWConfig, adamw_update, lr_schedule
 from repro_torch.tree import leaves, unflatten
 
 
 def make_loss_fn(cfg: ArchConfig):
-    """(params, batch) -> scalar loss.  Only the DiT is ported: the LM
-    backbones' loss waits for them (ROADMAP Queue 1)."""
+    """(params, batch) -> scalar loss: the DiT's denoising loss, or the
+    LM backbones' next-token cross entropy (``backbone.lm_loss``; a
+    config whose blocks are not ported raises here)."""
     if not cfg.is_diffusion:
-        raise NotImplementedError(
-            f"{cfg.name}: only the DiT's loss is ported; the LM backbones "
-            f"are still to port (ROADMAP Queue 1)")
+        backbone.check_ported(cfg)
+
+        def loss_fn(params, batch):
+            return backbone.lm_loss(params, cfg, batch)
+        return loss_fn
 
     def loss_fn(params, batch):
         device = batch["latents"].device
@@ -43,7 +47,7 @@ def make_grads_fn(cfg: ArchConfig, grad_accum: int = 1):
     loss_fn = make_loss_fn(cfg)
 
     def grads_of(params, batch):
-        rows = batch["latents"].shape[0]
+        rows = next(iter(batch.values())).shape[0]
         if rows % grad_accum:
             raise ValueError(f"batch of {rows} rows does not split into "
                              f"{grad_accum} microbatches")
@@ -55,7 +59,10 @@ def make_grads_fn(cfg: ArchConfig, grad_accum: int = 1):
             micro = {k: v.chunk(grad_accum) for k, v in batch.items()}
             for i in range(grad_accum):
                 l = loss_fn(params, {k: v[i] for k, v in micro.items()})
-                g = torch.autograd.grad(l, flat)
+                # a leaf the loss does not reach (the embedding table of
+                # a frontend="embed" arch) gets zeros, as jax.grad gives
+                g = torch.autograd.grad(l, flat, allow_unused=True,
+                                        materialize_grads=True)
                 with torch.no_grad():
                     if grads is None:
                         loss = l.detach().to(torch.float32)
@@ -97,6 +104,18 @@ def make_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
         return params, opt_state, {"loss": loss, **metrics}
 
     return train_step
+
+
+def make_prefill_step(cfg: ArchConfig):
+    def prefill_step(params, inputs, cache):
+        return backbone.prefill(params, cfg, inputs, cache)
+    return prefill_step
+
+
+def make_decode_step(cfg: ArchConfig):
+    def decode_step(params, token, cache):
+        return backbone.decode_step(params, cfg, token, cache)
+    return decode_step
 
 
 def make_parataa_serve_step(cfg: ArchConfig, solver_cfg, coeffs):

@@ -1,14 +1,17 @@
-"""Training driver for the DiT denoiser: config -> model -> data pipeline ->
-AdamW -> async checkpoints -> fault-tolerance supervision.  Runs on CUDA
-unless ``--device cpu``:
+"""Training driver (the DiT denoiser and the attention-family LM
+backbones): config -> model -> data pipeline -> AdamW -> async checkpoints
+-> fault-tolerance supervision.  Runs on CUDA unless ``--device cpu``:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch dit-xl --smoke \\
         --steps 30 --batch 16 --ckpt-dir /path/to/ckpt --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
+        --smoke --steps 10 --batch 8 --seq 128 --device cpu
 
 A rerun with the same ``--ckpt-dir`` and more ``--steps`` resumes from the
 latest checkpoint; ``python -m repro_torch.launch.serve --ckpt DIR`` serves
-it.  Only the DiT is ported: the LM backbones (and their token pipeline's
-driver path) are still to port (ROADMAP Queue 1).
+a DiT's.  An LM trains on the synthetic token stream (``TokenPipeline``;
+random frame embeddings for ``frontend="embed"`` archs).  Archs with
+mamba2, RG-LRU or MoE blocks are not ported yet (ROADMAP Queue 1 item 3b).
 """
 from __future__ import annotations
 
@@ -18,14 +21,18 @@ import time
 from pathlib import Path
 from typing import Dict, List
 
+import numpy as np
 import torch
 
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs.registry import get_arch
-from repro_torch.data.pipeline import LatentPipeline
+from repro_torch.data.pipeline import DataConfig, LatentPipeline, \
+    TokenPipeline
 from repro_torch.device import DeviceLike, resolve_device, to_device
 from repro_torch.diffusion.convert import dit_init
 from repro_torch.launch import steps as S
+from repro_torch.models.backbone import check_ported
+from repro_torch.models.convert import backbone_init
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.runtime import (RestartPolicy, StragglerMitigator,
                                  run_supervised)
@@ -33,9 +40,10 @@ from repro_torch.runtime import (RestartPolicy, StragglerMitigator,
 
 def build_state(cfg, seed: int, device: DeviceLike = None,
                 dtype=torch.float32):
-    """Random DiT params (the port's numpy initializer) and their AdamW
-    state on ``device``."""
-    params = dit_init(cfg, seed, device, dtype=dtype)
+    """Random DiT or backbone params (the port's numpy initializers) and
+    their AdamW state on ``device``."""
+    init = dit_init if cfg.is_diffusion else backbone_init
+    params = init(cfg, seed, device, dtype=dtype)
     return params, adamw_init(params)
 
 
@@ -92,15 +100,45 @@ def parse_args(argv=None):
 
 
 def resolve_arch(args):
+    """The --arch config (reduced with --smoke); exits for an unknown arch
+    or one whose blocks are not ported."""
     try:
         cfg = get_arch(args.arch)
-    except KeyError:
-        cfg = None
-    if cfg is None or not cfg.is_diffusion:
-        raise SystemExit(
-            f"--arch {args.arch}: only the DiT (dit-xl) is ported; the LM "
-            f"backbones are still to port (ROADMAP Queue 1)")
+        if not cfg.is_diffusion:
+            check_ported(cfg)
+    except (KeyError, NotImplementedError) as e:
+        raise SystemExit(e.args[0]) from e
     return cfg.reduced() if args.smoke else cfg
+
+
+def batch_fn(args, cfg, device):
+    """step -> the step's batch on ``device``: the DiT's latent batches
+    (16 tokens, as the reference trains), or an LM's token batches
+    (``--seq`` tokens; random frame embeddings as inputs for
+    ``frontend="embed"`` archs, as the reference makes them)."""
+    if cfg.is_diffusion:
+        pipe = LatentPipeline(num_tokens=16, latent_dim=cfg.latent_dim,
+                              num_classes=cfg.num_classes, seed=args.seed)
+        dtypes = {"latents": torch.float32, "noise": torch.float32,
+                  "labels": torch.int32, "t": torch.int32}
+        return lambda step: {k: to_device(v, dtypes[k], device)
+                             for k, v in pipe.batch(step, args.batch).items()}
+    tokens = TokenPipeline(DataConfig(seq_len=args.seq,
+                                      global_batch=args.batch,
+                                      vocab_size=cfg.vocab_size,
+                                      seed=args.seed))
+
+    def get_batch(step):
+        b = tokens.batch(step)
+        labels = to_device(b["labels"], torch.int32, device)
+        if cfg.frontend == "embed":
+            rng = np.random.default_rng(step)
+            emb = rng.normal(size=(args.batch, args.seq, cfg.d_model)) * 0.05
+            return {"inputs": to_device(emb, torch.float32, device),
+                    "labels": labels}
+        return {"inputs": to_device(b["inputs"], torch.int32, device),
+                "labels": labels}
+    return get_batch
 
 
 def train(args, cfg, params, opt_state) -> TrainResult:
@@ -109,14 +147,7 @@ def train(args, cfg, params, opt_state) -> TrainResult:
     device = resolve_device(args.device)
     opt_cfg = AdamWConfig(lr=args.lr, weight_decay=0.01)
     train_step = S.make_train_step(cfg, opt_cfg, total_steps=args.steps)
-    pipe = LatentPipeline(num_tokens=16, latent_dim=cfg.latent_dim,
-                          num_classes=cfg.num_classes, seed=args.seed)
-    dtypes = {"latents": torch.float32, "noise": torch.float32,
-              "labels": torch.int32, "t": torch.int32}
-
-    def get_batch(step):
-        return {k: to_device(v, dtypes[k], device)
-                for k, v in pipe.batch(step, args.batch).items()}
+    get_batch = batch_fn(args, cfg, device)
 
     ckpt = CheckpointManager(Path(args.ckpt_dir), keep=3) \
         if args.ckpt_dir else None

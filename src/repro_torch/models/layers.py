@@ -1,4 +1,4 @@
-"""The layers the DiT uses: norm, gated MLP, timestep and position
+"""Common layers: norms, gated MLP, RoPE / M-RoPE, timestep and position
 embeddings (the JAX package's ``models/layers.py`` counterparts)."""
 from __future__ import annotations
 
@@ -7,6 +7,22 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.device import constant, to_device
+from repro_torch.models.pdefs import ParamSpec
+
+
+def rmsnorm_def(d: int):
+    return {"scale": ParamSpec((d,), "ones")}
+
+
+def rmsnorm(params, x, eps: float = 1e-6):
+    """RMSNorm over the last axis, in float32."""
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(dt)
 
 
 def layernorm_noaffine(x, eps: float = 1e-6):
@@ -28,10 +44,59 @@ def act_fn(name: str):
     return {"silu": F.silu, "gelu": _gelu_tanh}[name]
 
 
+def mlp_def(d: int, ff: int):
+    """Gated MLP (SwiGLU / GeGLU)."""
+    return {"wi_gate": ParamSpec((d, ff), "lecun", d),
+            "wi_up": ParamSpec((d, ff), "lecun", d),
+            "wo": ParamSpec((ff, d), "lecun", ff)}
+
+
 def mlp(params, x, act: str = "silu"):
     """Gated MLP (SwiGLU / GeGLU): (act(x W_gate) * x W_up) W_o."""
     g = act_fn(act)(x @ params["wi_gate"])
     return (g * (x @ params["wi_up"])) @ params["wo"]
+
+
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64)
+                            / head_dim))
+
+
+def _freqs(d: int, theta: float, device) -> torch.Tensor:
+    """The (d/2,) float32 RoPE frequencies on ``device``, made once (no
+    host copy per call: decode runs under sync-debug mode on the card)."""
+    return constant(("rope_freqs", d, theta, torch.device(device)),
+                    lambda: to_device(rope_freqs(d, theta), torch.float32,
+                                      device))
+
+
+def _rotate(x, ang):
+    """x: (B, S, H, D); ang: (B, S, D/2) float32 -> x rotated (halves
+    layout), in x's dtype."""
+    sin, cos = torch.sin(ang)[:, :, None, :], torch.cos(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (B, S, H, D); positions: (B, S) int."""
+    freqs = _freqs(x.shape[-1], theta, x.device)
+    return _rotate(x, positions.float()[..., None] * freqs)
+
+
+def apply_m_rope(x, positions3, theta: float, sections):
+    """M-RoPE (qwen2-vl): positions3 (3, B, S) for (t, h, w); ``sections``
+    sums to head_dim // 2, each section rotates with its own position
+    stream."""
+    d = x.shape[-1]
+    freqs = _freqs(d, theta, x.device)
+    sec_id = constant(
+        ("m_rope_sections", tuple(sections), torch.device(x.device)),
+        lambda: to_device(np.repeat(np.arange(len(sections)), sections),
+                          torch.long, x.device))
+    pos = positions3.float()[sec_id]                  # (d/2, B, S)
+    return _rotate(x, pos.movedim(0, -1) * freqs)
 
 
 def sinusoidal_embed(t, dim: int, max_period: float = 10_000.0):

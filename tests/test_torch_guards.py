@@ -20,7 +20,7 @@ from tests.test_torch_helpers import normal
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
-    [REPO / "chip_smoke.py"]
+    [REPO / "chip_smoke.py", REPO / "examples" / "torch_backbone_denoiser.py"]
 
 
 def _imports(path: Path):
@@ -56,6 +56,16 @@ def test_entry_points_raise_without_cuda_unless_cpu_asked(no_cuda):
     eng = SamplingEngine(lambda *a: None, None, ddim_coeffs(4),
                          get_sampler("taa"), sample_shape=(2,), device="cpu")
     assert eng.device.type == "cpu"
+
+
+def test_lm_train_driver_raises_without_cuda_unless_cpu_asked(no_cuda):
+    from repro_torch.launch import train
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "qwen3-0.6b", "--steps", "1"])
+    assert len(train.main(["--arch", "qwen3-0.6b", "--smoke", "--steps", "1",
+                           "--batch", "2", "--seq", "8",
+                           "--device", "cpu"])) == 1
 
 
 def test_ops_on_cpu_tensors_launch_nothing():

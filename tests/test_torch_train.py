@@ -348,7 +348,7 @@ def test_train_driver_recovers_from_a_crashed_step(tmp_path, monkeypatch):
 
 def test_train_driver_refuses_an_unported_arch():
     with pytest.raises(SystemExit, match="ROADMAP Queue 1"):
-        ttrain.main(["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu"])
+        ttrain.main(["--arch", "mamba2-1.3b", "--smoke", "--device", "cpu"])
 
 
 def test_train_driver_defaults_to_cuda():
