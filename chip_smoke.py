@@ -106,8 +106,30 @@ is not 0):
    finite losses, the params read back ``torch.equal`` to the trained ones,
    no kernel launched; step wall, forward+backward and update ms printed.
 
+8. mamba2-1.3b, recurrentgemma-2b and qwen2-moe-a2.7b at full width, on a
+   card freed of phase 7: (a) mamba2-1.3b (48 layers, d 2048, 64 SSD heads
+   of 64, state 128, chunk 256) as phase 7's wrapper denoiser (numpy seed
+   0; fused, staged and sequential under sync-debug mode "error"; K3 once
+   an iteration fused, K1 and K2 staged, none sequential; x0 within 2e-2 of
+   sequential); (b) the same weights as an LM, batch 4, prefill 4096
+   tokens (16 chunks), 32 decode steps; (c) recurrentgemma-2b (8 periods of
+   rglru, rglru, attn + a tail of 2; weights drawn on the card, seed 0),
+   batch 4, prefill 3072 (past the 2048 window), 32 decodes; (d1)
+   qwen2-moe-a2.7b (weights drawn on the card) at a lossless capacity
+   factor of 64, batch 2, prefill 256, 32 decodes; each of (b)-(d1) in
+   float32 (decode logits within 2e-2 of ``forward``'s over the same
+   tokens; 4128 = a padded chunk for mamba2) and then, cast in place, in
+   bf16 (finite; its distances to both forwards printed), the last decode
+   of each run under sync-debug mode "error", the cache's bytes equal at
+   10x the length for (b) and (c); (d2) qwen2-moe-a2.7b in bf16 at its own
+   capacity factor 1.25 (slots dropped), batch 4, prefill 2048, 8 decodes,
+   finite; each run's prefill ms, decode ms a token and peak memory
+   printed; (e) two float32 steps of ``train.py --arch mamba2-1.3b --batch
+   8 --seq 128`` with a checkpoint through ``build/chip_smoke_ssm_ckpt``
+   (deleted after) read back ``torch.equal``, no kernel launched.
+
 Then one JSON line of per-kernel numbers (K1-K3 with ``wrapper_launches``,
-phase 7's), and last the line
+phase 7's, and ``ssm_wrapper_launches``, phase 8's), and last the line
 ``{"ok": true, "device": {...}}``.  Without CUDA, or run from a directory
 without the repository's ``src/``, it fails before printing any result.
 """
@@ -1297,9 +1319,9 @@ def strict_parataa():
         parataa.sample = real
 
 
-def wrapper_denoiser(cfg, params):
+def wrapper_denoiser(cfg, params, phase="phase 7"):
     """(a): ParaTAA fused, staged and sequential DDIM (T=50) on one request
-    of 16 latent tokens with the qwen3 wrapper as eps_theta, float32 with
+    of 16 latent tokens with the wrapper of ``cfg`` as eps_theta, float32 with
     TF32 off: a warm-up pass of the three, then the measured one, launches
     read per run; each solve under sync-debug mode."""
     import numpy as np
@@ -1344,53 +1366,55 @@ def wrapper_denoiser(cfg, params):
         warm_s = time.monotonic()
         for _, spec in specs:       # cuBLAS picks its kernels per shape
             solve(spec)
-        print(f"phase 7 wrapper warm-up pass {time.monotonic() - warm_s} s")
+        print(f"{phase} wrapper warm-up pass {time.monotonic() - warm_s} s")
         runs = {}
         for label, spec in specs:
             r = runs[label] = solve(spec)
             ms = r["eps_ms"]
-            print(f"phase 7 wrapper {label}: iters {r['iters']} nfe "
+            print(f"{phase} wrapper {label}: iters {r['iters']} nfe "
                   f"{r['nfe']} of T={WRAP_T}, wall {r['wall_s']} s, "
                   f"{len(ms)} denoiser calls, denoiser "
                   f"{sum(ms) / max(r['iters'], 1)} ms an iteration (median "
                   f"call {statistics.median(ms)} ms; host enqueue "
                   f"{statistics.median(r['eps_host_ms'])} ms), kernel "
                   f"launches {r['launches']}")
-            check(r["converged"], f"phase 7 {label}: not converged")
+            check(r["converged"], f"{phase} {label}: not converged")
         # one denoiser call at each run's shape under the profiler: what a
         # call costs the card, apart from its launches
         rows = runs["staged"]["nfe"] // runs["staged"]["iters"]
         for n in (rows, 1):
             _, ops, busy = profiled(lambda: eps(
                 xi[:1].expand(n, -1, -1), torch.zeros(n, device=cuda)))
-            print(f"phase 7 wrapper one denoiser call on {n} x "
+            print(f"{phase} wrapper one denoiser call on {n} x "
                   f"{WRAP_TOKENS} tokens under torch.profiler: {ops} "
                   f"device ops, busy {busy} ms")
     seq = runs["seq"]["x0"]
     zero = {name: 0 for name in all_launches()}
     check(runs["seq"]["launches"] == zero,
-          f"phase 7 seq launches {runs['seq']['launches']}")
+          f"{phase} seq launches {runs['seq']['launches']}")
     for label, want in (("fused", {"taa_round"}),
                         ("staged", {"taa_gram", "taa_apply"})):
         r = runs[label]
         err = float(np.max(np.abs(r["x0"] - seq)) / np.max(np.abs(seq)))
         r["err"] = err
-        print(f"phase 7 wrapper {label}: x0 against sequential rel err "
+        print(f"{phase} wrapper {label}: x0 against sequential rel err "
               f"{err} (bound 2e-2); wall {r['wall_s']} s against "
               f"sequential's {runs['seq']['wall_s']} s")
         check(r["x0"].shape == (WRAP_TOKENS, WRAP_LATENT)
-              and np.all(np.isfinite(r["x0"])), f"phase 7 {label} x0")
-        check(err < 2e-2, f"phase 7 {label} x0 off sequential by {err}")
+              and np.all(np.isfinite(r["x0"])), f"{phase} {label} x0")
+        check(err < 2e-2, f"{phase} {label} x0 off sequential by {err}")
         expect = {k: (r["iters"] if k in want else 0) for k in zero}
         check(r["launches"] == expect,
-              f"phase 7 {label} launches {r['launches']} != {expect}")
+              f"{phase} {label} launches {r['launches']} != {expect}")
     return runs
 
 
-def lm_train(ckpt_dir: Path):
-    """(b): two float32 steps of ``repro_torch.launch.train --arch
-    qwen3-0.6b --batch 8 --seq 128`` with a checkpoint through
-    ``ckpt_dir`` (deleted after), the saved params read back."""
+def lm_train(ckpt_dir: Path, flags=LM_TRAIN_FLAGS, n_expect=QWEN3_PARAMS,
+             phase="phase 7"):
+    """(b): two float32 steps of ``repro_torch.launch.train`` with
+    ``flags`` (qwen3-0.6b, batch 8, seq 128) and a checkpoint through
+    ``ckpt_dir`` (deleted after), the saved params read back; ``n_expect``
+    parameters."""
     import shutil
 
     import torch
@@ -1403,18 +1427,18 @@ def lm_train(ckpt_dir: Path):
     try:
         reset_all_launches()
         torch.cuda.reset_peak_memory_stats()
-        res = train.run(LM_TRAIN_FLAGS + ["--ckpt-dir", str(ckpt_dir)])
+        res = train.run(flags + ["--ckpt-dir", str(ckpt_dir)])
         launches = all_launches()
         peak = torch.cuda.max_memory_allocated()
         for st in res.step_ms:
-            print(f"phase 7 train step {st}")
-        print(f"phase 7 train: losses {res.losses}, kernel launches "
+            print(f"{phase} train step {st}")
+        print(f"{phase} train: losses {res.losses}, kernel launches "
               f"{launches}, peak memory allocated {peak} B")
         check(len(res.losses) == 2
               and all(math.isfinite(x) for x in res.losses),
-              f"phase 7 train losses {res.losses}")
+              f"{phase} train losses {res.losses}")
         check(not any(launches.values()),
-              f"phase 7 train launched {launches}")
+              f"{phase} train launched {launches}")
         step_dir = ckpt_dir / "step_00000002"
         nbytes = sum(p.stat().st_size for p in step_dir.iterdir())
         params = res.state["params"]
@@ -1427,11 +1451,11 @@ def lm_train(ckpt_dir: Path):
         same = all(torch.equal(x, y) for x, y in zip(
             leaves(tree["params"]), leaves(params)))
         n_params = sum(x.numel() for x in leaves(params))
-        print(f"phase 7 checkpoint step {step}: {nbytes} B on disk, "
+        print(f"{phase} checkpoint step {step}: {nbytes} B on disk, "
               f"{n_params} parameters; params read back in {read_s} s, "
               f"equal to the trained ones (torch.equal): {same}")
-        check(step == 2 and same, "phase 7 restored params != trained")
-        check(n_params == QWEN3_PARAMS, f"phase 7: {n_params} parameters")
+        check(step == 2 and same, f"{phase} restored params != trained")
+        check(n_params == n_expect, f"{phase}: {n_params} parameters")
         return res.step_ms
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -1543,7 +1567,8 @@ def backbone_path(ckpt_dir: Path):
 
     from repro_torch.configs.registry import get_arch
     from repro_torch.diffusion.convert import wrapper_init
-    from repro_torch.tree import map_tree
+    from repro_torch.models.backbone import build_defs
+    from repro_torch.models.pdefs import cast_params_
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1558,7 +1583,8 @@ def backbone_path(ckpt_dir: Path):
           f"{time.monotonic() - t0} s (numpy seed {SEED}, out_proj N(0, "
           f"{WRAP_OUT_SCALE}^2))")
     wrap = wrapper_denoiser(cfg, params)
-    lm = map_tree(lambda x: x.to(torch.bfloat16), params["backbone"])
+    lm = params.pop("backbone")
+    cast_params_(build_defs(cfg), lm, torch.bfloat16)
     del params
     free_card()
     decode = lm_prefill_decode(cfg, lm)
@@ -1566,6 +1592,216 @@ def backbone_path(ckpt_dir: Path):
     free_card()
     steps = lm_train(ckpt_dir)
     return dict(wrap=wrap, decode=decode, steps=steps)
+
+
+# --- phase 8: mamba2, the RG-LRU hybrid and MoE at full width ---------------
+
+SSM_ARCH, HYBRID_ARCH, MOE_ARCH = ("mamba2-1.3b", "recurrentgemma-2b",
+                                   "qwen2-moe-a2.7b")
+#: (e): the train driver's flags beside --ckpt-dir
+SSM_TRAIN_FLAGS = ["--arch", SSM_ARCH, "--batch", "8", "--seq", "128",
+                   "--steps", "2", "--ckpt-every", "1000", "--log-every", "1"]
+#: the parameters of mamba2-1.3b's and recurrentgemma-2b's ``build_defs``
+MAMBA2_PARAMS, RGEMMA_PARAMS = 1_343_532_032, 2_688_089_600
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.tree import leaves
+
+    return sum(x.numel() * x.element_size() for x in leaves(tree))
+
+
+def lm_run(phase, cfg, params, batch, prompt, decode, *, reference=True):
+    """``batch`` sequences of random tokens (numpy seed 0): prefill
+    ``prompt`` tokens (twice, the second timed), ``decode`` decode steps
+    (the last under sync-debug mode "error"), and with ``reference``
+    ``forward`` over the same prompt + decode tokens; every launch count
+    set to 0 before and read after.  The logits come back on the host."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import backbone
+    from repro_torch.tree import leaves
+
+    cuda = torch.device("cuda")
+    total = prompt + decode
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (batch, total)).astype(np.int32)).to(cuda)
+    dtype = params["embed"].dtype
+    cache = backbone.init_cache(cfg, batch, total, dtype, cuda)
+    cache_bytes = tree_bytes(cache)
+    reset_all_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        prefill = TimedCalls(lambda: backbone.prefill(
+            params, cfg, tokens[:, :prompt], cache))
+        for _ in range(2):     # from a zero cache each time
+            for leaf in leaves(cache):
+                leaf.zero_()
+            last, _ = prefill()
+        step = TimedCalls(lambda t: backbone.decode_step(params, cfg, t,
+                                                         cache))
+        outs = []
+        for i in range(decode):
+            tok = tokens[:, prompt + i:prompt + i + 1]
+            if i == decode - 1:
+                torch.cuda.synchronize()
+                with sync_debug_error():
+                    logits, _ = step(tok)
+            else:
+                logits, _ = step(tok)
+            outs.append(logits)
+        dec = torch.cat(outs, dim=1).float().cpu()
+        last = last[:, 0].float().cpu()
+        index = int(backbone.cache_index(cfg, cache))
+        del cache, outs, logits
+        free_card()
+        ref = None
+        if reference:
+            ref = backbone.forward(params, cfg, tokens)[0][
+                :, prompt - 1:].float().cpu()
+    out = dict(dec=dec, last=last, ref=ref, index=index,
+               cache_bytes=cache_bytes, prefill_ms=prefill.ms()[-1],
+               prefill_first_ms=prefill.ms()[0],
+               decode_ms=statistics.median(step.ms()[1:decode - 1]),
+               decode_host_ms=statistics.median(step.host_ms[1:decode - 1]),
+               peak=torch.cuda.max_memory_allocated(),
+               launches=all_launches())
+    print(f"{phase} LM {str(dtype)[6:]} batch {batch}: prefill {prompt} "
+          f"tokens {out['prefill_ms']} ms (first {out['prefill_first_ms']} "
+          f"ms); decode {out['decode_ms']} ms a token on the card, host "
+          f"enqueue {out['decode_host_ms']} ms (medians of steps 2-"
+          f"{decode - 1}); cache {cache_bytes} B, index {index}; peak memory "
+          f"allocated {out['peak']} B; kernel launches {out['launches']}; "
+          f"the last decode step under sync-debug mode \"error\"")
+    check(index == total, f"{phase} cache index {index}")
+    check(bool(torch.isfinite(dec).all()), f"{phase} decode logits finite")
+    check(not any(out["launches"].values()),
+          f"{phase} LM launched {out['launches']}")
+    return out
+
+
+def rel(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def lm_check(phase, cfg, params, batch, prompt, decode, *,
+             const_memory=True):
+    """The model in float32, then (cast in place) in bf16, through
+    :func:`lm_run`.  Checks: in float32, the decode logits (and the
+    prefill's last) within 2e-2 of the logits' scale of ``forward``'s
+    over the same tokens; in bf16, finite (its distances to the float32
+    and bf16 forwards printed: bf16 rounding compounds over depth).
+    ``const_memory``: the cache's bytes equal at 10x the length."""
+    import torch
+
+    from repro_torch.models import backbone
+    from repro_torch.models.pdefs import cast_params_
+
+    if const_memory:
+        total = prompt + decode
+        small, big = (tree_bytes(backbone.init_cache(
+            cfg, batch, n, torch.bfloat16, torch.device("cuda")))
+            for n in (total, 10 * total))
+        print(f"{phase} cache bytes at max_seq {total}: {small}, at "
+              f"{10 * total}: {big}")
+        check(small == big, f"{phase} cache grows: {small} -> {big}")
+    r32 = lm_run(phase, cfg, params, batch, prompt, decode)
+    ref = r32["ref"]
+    err, err_last = rel(r32["dec"], ref[:, 1:]), rel(r32["last"], ref[:, 0])
+    print(f"{phase} float32: decode logits against forward's over "
+          f"{prompt + decode} tokens rel err {err}, the prefill's last "
+          f"{err_last} (bound 2e-2; logits' scale "
+          f"{float(ref.abs().max())})")
+    check(err < 2e-2 and err_last < 2e-2,
+          f"{phase} float32 decode off forward by {err} / {err_last}")
+    cast_params_(backbone.build_defs(cfg), params, torch.bfloat16)
+    free_card()
+    r16 = lm_run(phase, cfg, params, batch, prompt, decode)
+    print(f"{phase} bf16: decode logits against the bf16 forward's rel err "
+          f"{rel(r16['dec'], r16['ref'][:, 1:])}, against the float32 "
+          f"forward's {rel(r16['dec'], ref[:, 1:])}; the bf16 forward "
+          f"against the float32 one {rel(r16['ref'], ref)}")
+    return dict(float32=r32, bfloat16=r16, err=err, err_last=err_last)
+
+
+def ssm_moe_path(ckpt_dir: Path):
+    """Phase 8: (a) mamba2-1.3b at full width as the wrapper denoiser
+    (numpy seed 0), (b) the same weights as an LM, (c) recurrentgemma-2b
+    and (d) qwen2-moe-a2.7b as LMs (weights drawn on the card, seed 0),
+    each in float32 and bf16, (e) mamba2-1.3b trained by the driver."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.diffusion.convert import wrapper_init
+    from repro_torch.models import backbone
+    from repro_torch.models.convert import backbone_init_on_device
+    from repro_torch.models.pdefs import param_count
+
+    cuda = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    t0 = time.monotonic()
+    cfg = get_arch(SSM_ARCH)
+    params = wrapper_init(cfg, WRAP_LATENT, SEED, cuda,
+                          out_scale=WRAP_OUT_SCALE)
+    torch.cuda.synchronize()
+    print(f"phase 8 {SSM_ARCH}: {cfg.num_layers} layers d={cfg.d_model} "
+          f"d_inner={cfg.d_inner} {cfg.ssm_nheads} SSD heads x "
+          f"{cfg.ssm_head_dim} state {cfg.ssm_state} chunk {cfg.ssm_chunk}, "
+          f"{param_count(backbone.build_defs(cfg))} backbone parameters "
+          f"({cfg.param_count()} by the config's count); wrapper params "
+          f"made in {time.monotonic() - t0} s (numpy seed {SEED})")
+    out["wrap"] = wrapper_denoiser(cfg, params, phase="phase 8 (a)")
+    t1 = time.monotonic()
+    lm = params.pop("backbone")
+    del params
+    free_card()
+    out["ssm"] = lm_check("phase 8 (b)", cfg, lm, 4, 4096, 32)
+    del lm
+    free_card()
+    t2 = time.monotonic()
+
+    cfg = get_arch(HYBRID_ARCH)
+    lm = backbone_init_on_device(cfg, SEED, cuda, dtype=torch.float32)
+    n = param_count(backbone.build_defs(cfg))
+    print(f"phase 8 (c) {HYBRID_ARCH}: {cfg.num_layers} layers "
+          f"{backbone.hybrid_layout(cfg)} d={cfg.d_model} "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.head_dim} window "
+          f"{cfg.window_size} softcap {cfg.logit_softcap} vocab "
+          f"{cfg.vocab_size}, {n} parameters ({cfg.param_count()} by the "
+          f"config's count), drawn on the card (seed {SEED})")
+    check(n == RGEMMA_PARAMS, f"phase 8 (c): {n} parameters")
+    out["hybrid"] = lm_check("phase 8 (c)", cfg, lm, 4, 3072, 32)
+    del lm
+    free_card()
+    t3 = time.monotonic()
+
+    cfg = get_arch(MOE_ARCH)
+    lm = backbone_init_on_device(cfg, SEED, cuda, dtype=torch.float32)
+    print(f"phase 8 (d) {MOE_ARCH}: {cfg.num_layers} layers d={cfg.d_model}"
+          f" {cfg.num_experts} routed experts padded to "
+          f"{lm['layers']['moe']['we_gate'].shape[1]}, top-{cfg.moe_top_k}, "
+          f"{cfg.num_shared_experts} shared fused, "
+          f"{param_count(backbone.build_defs(cfg))} parameters drawn on the "
+          f"card (seed {SEED}), {tree_bytes(lm)} B in float32")
+    lossless = dataclasses.replace(cfg, moe_capacity_factor=64.0)
+    out["moe"] = lm_check("phase 8 (d1) capacity factor 64", lossless, lm,
+                          2, 256, 32, const_memory=False)
+    out["moe_drop"] = lm_run("phase 8 (d2) capacity factor 1.25", cfg, lm,
+                             4, 2048, 8, reference=False)
+    del lm
+    free_card()
+    t4 = time.monotonic()
+    out["steps"] = lm_train(ckpt_dir, SSM_TRAIN_FLAGS, MAMBA2_PARAMS,
+                            phase="phase 8 (e)")
+    print(f"phase 8 seconds: (a) {t1 - t0}, (b) {t2 - t1}, (c) {t3 - t2}, "
+          f"(d) {t4 - t3}, (e) {time.monotonic() - t4}")
+    return out
 
 
 # --- phase 4: the model kernels through kernels.ops at model widths ----------
@@ -1987,10 +2223,18 @@ def main() -> int:
         run = lm["wrap"]["fused" if name == "taa_round" else "staged"]
         next(r for r in rows if r["name"] == name)["wrapper_launches"] = \
             run["launches"][name]
+    t7 = time.monotonic()
+    free_card()
+    ssm = ssm_moe_path(ROOT / "build" / "chip_smoke_ssm_ckpt")
+    for name in ("taa_gram", "taa_apply", "taa_round"):
+        run = ssm["wrap"]["fused" if name == "taa_round" else "staged"]
+        next(r for r in rows if r["name"] == name)[
+            "ssm_wrapper_launches"] = run["launches"][name]
     print(f"phase seconds: build {t1 - t0}, taa kernels {t2 - t1}, DiT-XL "
           f"serving {t3 - t2}, model kernels {t4 - t3}, DiT-XL stepwise "
           f"serving {t5 - t4}, DiT-XL train-checkpoint-serve {t6 - t5}, "
-          f"qwen3-0.6b wrapper/LM {time.monotonic() - t6}")
+          f"qwen3-0.6b wrapper/LM {t7 - t6}, mamba2/recurrentgemma/MoE "
+          f"{time.monotonic() - t7}")
     # the card again, so that the end of a long log still names it
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": rows}))

@@ -5,8 +5,11 @@ it with ParaTAA and with sequential DDIM (T=50) and compares the two.
     PYTHONPATH=src python examples/torch_backbone_denoiser.py \\
         --arch qwen3-0.6b --device cpu
 
-Runs on CUDA unless ``--device cpu``.  The attention-family archs are
-ported; mamba2, RG-LRU and MoE backbones are not yet.
+    PYTHONPATH=src python examples/torch_backbone_denoiser.py \
+        --arch mamba2-1.3b --device cpu
+
+Runs on CUDA unless ``--device cpu``.  Any of the ten LM archs serves as
+the denoiser (attention, mamba2, the RG-LRU hybrid, MoE).
 """
 import argparse
 
@@ -18,25 +21,16 @@ from repro_torch.device import resolve_device, to_device
 from repro_torch.diffusion import dit
 from repro_torch.diffusion.convert import wrapper_init
 from repro_torch.diffusion.schedules import make_schedule
-from repro_torch.models.backbone import check_ported
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 from repro_torch.sampling import (draw_noises, get_sampler, run,
                                   sequential_sample)
 from repro_torch.tree import leaves, unflatten
 
 
-def ported(name: str) -> bool:
-    try:
-        check_ported(ARCHS[name])
-    except NotImplementedError:
-        return False
-    return True
-
-
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--arch", default="qwen3-0.6b",
-                   choices=[n for n in ASSIGNED if ported(n)])
+                   choices=ASSIGNED)
     p.add_argument("--train-steps", type=int, default=60)
     p.add_argument("--device", default="cuda",
                    help="torch device (cpu for a host run)")

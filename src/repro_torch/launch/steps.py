@@ -23,11 +23,9 @@ from repro_torch.tree import leaves, unflatten
 
 def make_loss_fn(cfg: ArchConfig):
     """(params, batch) -> scalar loss: the DiT's denoising loss, or the
-    LM backbones' next-token cross entropy (``backbone.lm_loss``; a
-    config whose blocks are not ported raises here)."""
+    LM backbones' next-token cross entropy (``backbone.lm_loss``, with
+    the MoE load-balancing term for MoE configs)."""
     if not cfg.is_diffusion:
-        backbone.check_ported(cfg)
-
         def loss_fn(params, batch):
             return backbone.lm_loss(params, cfg, batch)
         return loss_fn

@@ -1,17 +1,18 @@
-"""Training driver (the DiT denoiser and the attention-family LM
-backbones): config -> model -> data pipeline -> AdamW -> async checkpoints
--> fault-tolerance supervision.  Runs on CUDA unless ``--device cpu``:
+"""Training driver (the DiT denoiser and the LM backbones): config ->
+model -> data pipeline -> AdamW -> async checkpoints -> fault-tolerance
+supervision.  Runs on CUDA unless ``--device cpu``:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch dit-xl --smoke \\
         --steps 30 --batch 16 --ckpt-dir /path/to/ckpt --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --smoke --steps 10 --batch 8 --seq 128 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch recurrentgemma-2b --smoke --device cpu
 
 A rerun with the same ``--ckpt-dir`` and more ``--steps`` resumes from the
 latest checkpoint; ``python -m repro_torch.launch.serve --ckpt DIR`` serves
 a DiT's.  An LM trains on the synthetic token stream (``TokenPipeline``;
-random frame embeddings for ``frontend="embed"`` archs).  Archs with
-mamba2, RG-LRU or MoE blocks are not ported yet (ROADMAP Queue 1 item 3b).
+random frame embeddings for ``frontend="embed"`` archs).
 """
 from __future__ import annotations
 
@@ -31,7 +32,6 @@ from repro_torch.data.pipeline import DataConfig, LatentPipeline, \
 from repro_torch.device import DeviceLike, resolve_device, to_device
 from repro_torch.diffusion.convert import dit_init
 from repro_torch.launch import steps as S
-from repro_torch.models.backbone import check_ported
 from repro_torch.models.convert import backbone_init
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.runtime import (RestartPolicy, StragglerMitigator,
@@ -100,13 +100,11 @@ def parse_args(argv=None):
 
 
 def resolve_arch(args):
-    """The --arch config (reduced with --smoke); exits for an unknown arch
-    or one whose blocks are not ported."""
+    """The --arch config (reduced with --smoke); exits for an unknown
+    arch."""
     try:
         cfg = get_arch(args.arch)
-        if not cfg.is_diffusion:
-            check_ported(cfg)
-    except (KeyError, NotImplementedError) as e:
+    except KeyError as e:
         raise SystemExit(e.args[0]) from e
     return cfg.reduced() if args.smoke else cfg
 

@@ -1,7 +1,8 @@
-"""Backbone assembly: builds an attention-family architecture from its
-ArchConfig (the JAX package's ``repro.models.backbone``).
+"""Backbone assembly: builds any configured LM architecture from its
+ArchConfig (the JAX package's ``repro.models.backbone``): attention, mamba2
+(ssm) and RG-LRU blocks, dense or MoE MLPs, and the hybrid layout.
 
-API (plain functions, params are nested dicts of tensors):
+API (plain functions, params are nested dicts/lists of tensors):
   build_defs(cfg)                          -> ParamSpec tree
   forward(params, cfg, tokens/embeds)      -> (logits, aux)   (train shapes)
   prefill(params, cfg, inputs, cache)      -> (logits, cache)
@@ -13,12 +14,12 @@ API (plain functions, params are nested dicts of tensors):
 
 Layers are stacked on a leading axis, as the reference's scan carries
 them; each stacked leaf is split into its layers once (``unbind``) and the
-layers run in a Python loop.  Train mode recomputes each layer in the
-backward pass (``torch.utils.checkpoint``, the reference's
-``jax.checkpoint``).  Prefill and decode write the stacked cache in place.
-
-Only attention blocks with a dense MLP are ported: a config with mamba2
-(ssm) or RG-LRU layers, or with MoE, raises NotImplementedError.
+layers run in a Python loop.  A hybrid stack (recurrentgemma) stacks its
+period groups (e.g. rglru, rglru, attn) and keeps the remainder as a list
+``tail``.  Train mode recomputes each layer (a hybrid: each period group,
+each tail layer) in the backward pass (``torch.utils.checkpoint``, the
+reference's ``jax.checkpoint``).  Prefill and decode write the cache in
+place.
 """
 from __future__ import annotations
 
@@ -33,45 +34,57 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import attention, attention_def, \
     init_attn_cache
 from repro_torch.models.layers import mlp, mlp_def, rmsnorm, rmsnorm_def
+from repro_torch.models.mamba2 import init_mamba_cache, mamba_apply, \
+    mamba_def
+from repro_torch.models.moe import moe_apply, moe_def
 from repro_torch.models.pdefs import ParamSpec, stack_defs
-
-#: where the blocks this module lacks are queued
-NOT_PORTED = "ROADMAP Queue 1 item 3b"
-
-
-def check_ported(cfg: ArchConfig) -> None:
-    """Raises NotImplementedError for a config with ssm, rglru or MoE
-    blocks."""
-    other = sorted(set(cfg.layer_kinds()) - {"attn"})
-    if other or cfg.is_moe:
-        what = other + (["moe"] if cfg.is_moe else [])
-        raise NotImplementedError(
-            f"{cfg.name}: {'/'.join(what)} blocks are not ported yet; only "
-            f"the attention-family backbones are ({NOT_PORTED})")
-
+from repro_torch.models.rglru import init_rglru_cache, rglru_apply, \
+    rglru_def
 
 # ---------------------------------------------------------------------------
 # Definitions
 # ---------------------------------------------------------------------------
 
 
-def _layer_def(cfg: ArchConfig):
-    d = {"norm1": rmsnorm_def(cfg.d_model), "norm2": rmsnorm_def(cfg.d_model),
-         "attn": attention_def(cfg)}
-    if cfg.d_ff:
+def _layer_def(cfg: ArchConfig, kind: str):
+    if kind == "ssm":
+        return {"norm": rmsnorm_def(cfg.d_model), "mamba": mamba_def(cfg)}
+    d = {"norm1": rmsnorm_def(cfg.d_model), "norm2": rmsnorm_def(cfg.d_model)}
+    if kind == "attn":
+        d["attn"] = attention_def(cfg)
+    else:  # rglru
+        d["rec"] = rglru_def(cfg)
+    if cfg.is_moe:
+        d["moe"] = moe_def(cfg)
+    elif cfg.d_ff:
         d["mlp"] = mlp_def(cfg.d_model, cfg.d_ff)
     return d
 
 
+def hybrid_layout(cfg: ArchConfig):
+    """(kinds of a period group, number of groups, kinds of the tail)."""
+    kinds = cfg.layer_kinds()
+    period = cfg.rglru_ratio
+    n_per = cfg.num_layers // period
+    return kinds[:period], n_per, kinds[n_per * period:]
+
+
 def build_defs(cfg: ArchConfig):
-    check_ported(cfg)
     d = cfg.d_model
     defs = {
         "embed": ParamSpec((cfg.vocab_size, d), "normal",
                            scale=1.0 / math.sqrt(d)),
         "final_norm": rmsnorm_def(d),
-        "layers": stack_defs(_layer_def(cfg), cfg.num_layers),
     }
+    if cfg.is_hybrid:
+        group_kinds, n_per, tail_kinds = hybrid_layout(cfg)
+        defs["periods"] = stack_defs(
+            {f"l{j}": _layer_def(cfg, k) for j, k in enumerate(group_kinds)},
+            n_per)
+        defs["tail"] = [_layer_def(cfg, k) for k in tail_kinds]
+    else:
+        defs["layers"] = stack_defs(_layer_def(cfg, cfg.layer_kinds()[0]),
+                                    cfg.num_layers)
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamSpec((d, cfg.vocab_size), "lecun", d)
     return defs
@@ -82,14 +95,34 @@ def build_defs(cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 
+def _layer_cache(cfg: ArchConfig, kind: str, batch: int, max_seq: int,
+                 dtype, device):
+    if kind == "ssm":
+        return init_mamba_cache(cfg, batch, dtype, device)
+    if kind == "rglru":
+        return init_rglru_cache(cfg, batch, dtype, device)
+    window = cfg.window_size if cfg.attention_kind == "swa" else 0
+    return init_attn_cache(cfg, batch, max_seq, window, dtype, device)
+
+
+def _stacked(one, n: int):
+    return {k: torch.zeros((n,) + v.shape, dtype=v.dtype, device=v.device)
+            for k, v in one.items()}
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None):
-    """The stacked (L, ...) cache on ``device``, zeros, index 0."""
-    check_ported(cfg)
-    window = cfg.window_size if cfg.attention_kind == "swa" else 0
-    one = init_attn_cache(cfg, batch, max_seq, window, dtype, device)
-    return {k: torch.zeros((cfg.num_layers,) + v.shape, dtype=v.dtype,
-                           device=v.device) for k, v in one.items()}
+    """The cache on ``device``, zeros, index 0: stacked (L, ...) leaves,
+    or for a hybrid {"periods": {"l0": stacked, ...}, "tail": [...]}, the
+    reference's structure."""
+    def one(kind):
+        return _layer_cache(cfg, kind, batch, max_seq, dtype, device)
+    if cfg.is_hybrid:
+        group_kinds, n_per, tail_kinds = hybrid_layout(cfg)
+        return {"periods": {f"l{j}": _stacked(one(k), n_per)
+                            for j, k in enumerate(group_kinds)},
+                "tail": [one(k) for k in tail_kinds]}
+    return _stacked(one(cfg.layer_kinds()[0]), cfg.num_layers)
 
 
 # ---------------------------------------------------------------------------
@@ -108,36 +141,84 @@ def _unstack(tree, n: int):
     return tree.unbind(0)
 
 
-def _apply_layer(cfg: ArchConfig, params, h, positions, *, mode: str, cache,
-                 causal: bool):
+def _add(total, aux):
+    return aux if total is None else total if aux is None else total + aux
+
+
+def _apply_layer(cfg: ArchConfig, kind: str, params, h, positions, *,
+                 mode: str, cache, causal: bool):
+    """-> (h, MoE aux loss or None); the cache is written in place."""
+    if kind == "ssm":
+        y, _ = mamba_apply(params["mamba"], cfg,
+                           rmsnorm(params["norm"], h, cfg.norm_eps),
+                           mode=mode, cache=cache)
+        return h + y, None
     x = rmsnorm(params["norm1"], h, cfg.norm_eps)
-    window = cfg.window_size if cfg.attention_kind == "swa" else 0
-    y, new_cache = attention(params["attn"], cfg, x, positions, window=window,
-                             causal=causal, cache=cache, mode=mode)
+    if kind == "attn":
+        window = cfg.window_size if cfg.attention_kind == "swa" else 0
+        y, _ = attention(params["attn"], cfg, x, positions, window=window,
+                         causal=causal, cache=cache, mode=mode)
+    else:  # rglru
+        y, _ = rglru_apply(params["rec"], cfg, x, mode=mode, cache=cache)
     h = h + y
     x2 = rmsnorm(params["norm2"], h, cfg.norm_eps)
-    return h + mlp(params["mlp"], x2, cfg.act), new_cache
+    if cfg.is_moe:
+        y2, aux = moe_apply(params["moe"], cfg, x2)
+        return h + y2, aux
+    return h + mlp(params["mlp"], x2, cfg.act), None
+
+
+def _apply_group(cfg: ArchConfig, kinds, params, h, positions, *, mode: str,
+                 cache, causal: bool):
+    """A hybrid period group: its layers l0, l1, ... in order."""
+    aux = None
+    for j, kind in enumerate(kinds):
+        h, a = _apply_layer(cfg, kind, params[f"l{j}"], h, positions,
+                            mode=mode, causal=causal,
+                            cache=cache[f"l{j}"] if cache is not None
+                            else None)
+        aux = _add(aux, a)
+    return h, aux
 
 
 def trunk(params, cfg: ArchConfig, h, positions, *, mode: str = "train",
           cache=None, causal: bool = True, remat: Optional[bool] = None):
     """h: (B, S, d) -> (h_out, cache, aux_loss).  ``remat`` (default: train
-    mode) recomputes each layer in the backward pass; it applies only where
-    autograd records."""
-    check_ported(cfg)
+    mode) recomputes each layer (a hybrid's period group) in the backward
+    pass; it applies only where autograd records."""
     if remat is None:
         remat = mode == "train"
     remat = remat and torch.is_grad_enabled()
-    L = cfg.num_layers
-    caches = _unstack(cache, L) if cache is not None else [None] * L
-    for lp, lc in zip(_unstack(params["layers"], L), caches):
+
+    def run(fn, *args, **kw):
         if remat:
-            h, _ = checkpoint(_apply_layer, cfg, lp, h, positions, mode=mode,
-                              cache=lc, causal=causal, use_reentrant=False)
-        else:
-            h, _ = _apply_layer(cfg, lp, h, positions, mode=mode, cache=lc,
-                                causal=causal)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+            return checkpoint(fn, *args, **kw, use_reentrant=False)
+        return fn(*args, **kw)
+
+    aux = None
+    if cfg.is_hybrid:
+        group_kinds, n_per, tail_kinds = hybrid_layout(cfg)
+        caches = _unstack(cache["periods"], n_per) if cache is not None \
+            else [None] * n_per
+        for gp, gc in zip(_unstack(params["periods"], n_per), caches):
+            h, a = run(_apply_group, cfg, group_kinds, gp, h, positions,
+                       mode=mode, cache=gc, causal=causal)
+            aux = _add(aux, a)
+        for j, kind in enumerate(tail_kinds):
+            h, a = run(_apply_layer, cfg, kind, params["tail"][j], h,
+                       positions, mode=mode,
+                       cache=cache["tail"][j] if cache is not None else None,
+                       causal=causal)
+            aux = _add(aux, a)
+    else:
+        L, kind = cfg.num_layers, cfg.layer_kinds()[0]
+        caches = _unstack(cache, L) if cache is not None else [None] * L
+        for lp, lc in zip(_unstack(params["layers"], L), caches):
+            h, a = run(_apply_layer, cfg, kind, lp, h, positions, mode=mode,
+                       cache=lc, causal=causal)
+            aux = _add(aux, a)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return rmsnorm(params["final_norm"], h, cfg.norm_eps), cache, aux
 
 
@@ -154,7 +235,13 @@ def embed(params, cfg: ArchConfig, inputs):
             raise ValueError(f"{cfg.name}: float inputs need frontend="
                              f"'embed', not {cfg.frontend!r}")
         return inputs
-    return F.embedding(inputs, params["embed"])
+    h = F.embedding(inputs, params["embed"])
+    if cfg.is_hybrid:
+        # gemma-style scaling by sqrt(d), the factor itself rounded to the
+        # activations' dtype first, as the reference rounds it (50.5 in bf16
+        # for d = 2560)
+        h = h * float(torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype))
+    return h
 
 
 def head_weight(params, cfg: ArchConfig):
@@ -203,14 +290,20 @@ def prefill(params, cfg: ArchConfig, inputs, cache, positions=None, *,
     return unembed(params, cfg, h), cache
 
 
+def cache_index(cfg: ArchConfig, cache):
+    """The tokens written so far: the first layer's device int32 index
+    (the same in every layer; a hybrid's from its first period group)."""
+    return (cache["periods"]["l0"] if cfg.is_hybrid else cache)["index"][0]
+
+
 def decode_step(params, cfg: ArchConfig, token, cache):
     """One decoding step.  token: (B, 1) ids (or (B, 1, d) embeds for stub
     frontends).  Returns (logits (B, 1, V), cache), the cache written in
     place; the position is the cache's device index (no host read)."""
     b = token.shape[0]
-    # absolute position = cache index (the same in every layer); a copy,
-    # since each layer advances its own index in place
-    pos = cache["index"][0].clone().view(1, 1).expand(b, 1)
+    # absolute position = cache index; a copy, since each layer advances
+    # its own index in place
+    pos = cache_index(cfg, cache).clone().view(1, 1).expand(b, 1)
     positions = pos[None].expand(3, b, 1) if cfg.m_rope else pos
     h = embed(params, cfg, token)
     h, cache, _ = trunk(params, cfg, h, positions, mode="decode",
@@ -259,7 +352,11 @@ def lm_loss(params, cfg: ArchConfig, batch):
     inputs = batch["inputs"]
     b, s = inputs.shape[:2]
     h = embed(params, cfg, inputs)
-    h, _, _ = trunk(params, cfg, h,
-                    default_positions(cfg, b, s, inputs.device), mode="train")
-    return _chunked_xent(h, head_weight(params, cfg), batch["labels"],
-                         cfg.logit_softcap)
+    h, _, aux = trunk(params, cfg, h,
+                      default_positions(cfg, b, s, inputs.device),
+                      mode="train")
+    nll = _chunked_xent(h, head_weight(params, cfg), batch["labels"],
+                        cfg.logit_softcap)
+    if cfg.is_moe:
+        nll = nll + 0.01 * aux / cfg.num_layers
+    return nll

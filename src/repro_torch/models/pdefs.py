@@ -1,19 +1,21 @@
 """Parameter definitions: one tree of ``ParamSpec`` leaves gives a model's
-shapes and inits (the JAX package's ``repro.models.pdefs`` without its
-mesh rules, which come with the placement slice).
+shapes, inits and per-leaf dtypes (the JAX package's ``repro.models.pdefs``
+without its mesh rules, which come with the placement slice).
 
-A params tree is nested dicts keyed as the reference's, so its leaves have
-the reference's paths: a JAX tree of numpy arrays converts leaf for leaf
+A params tree is nested dicts and lists laid out as the reference's, so
+its leaves have the reference's paths (dict keys, and list indices as
+ints): a JAX tree of numpy arrays converts leaf for leaf
 (:func:`params_from_numpy`), and checkpoints cross between the packages.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Mapping, NamedTuple, Optional, Tuple
+from typing import Callable, Iterator, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.tree import path_name
 
 
 class ParamSpec(NamedTuple):
@@ -21,25 +23,41 @@ class ParamSpec(NamedTuple):
     init: str         # normal | zeros | ones | lecun (the JAX package's inits)
     fan_in: int = 0   # lecun: the size of the dimensions the weight contracts
     scale: Optional[float] = None   # normal: stddev (None = 0.02)
+    #: this leaf's dtype whatever the tree's (the reference's ``ParamDef.
+    #: dtype``: the SSM decays, the RG-LRU's ``lam`` and the MoE router
+    #: stay float32 in a bf16 model)
+    dtype: Optional[torch.dtype] = None
 
 
-def stack_defs(defs: Dict, n: int) -> Dict:
+def map_defs(fn: Callable, defs, path: Tuple = ()):
+    """``fn(path, spec)`` at every leaf of a defs tree, in the tree's
+    structure; visited in path order (dict keys sorted, as JAX orders
+    them, list items by index)."""
+    if isinstance(defs, ParamSpec):
+        return fn(path, defs)
+    if isinstance(defs, dict):
+        return {k: map_defs(fn, defs[k], path + (k,)) for k in sorted(defs)}
+    return [map_defs(fn, sub, path + (i,)) for i, sub in enumerate(defs)]
+
+
+def walk(defs, prefix: Tuple = ()) -> Iterator[Tuple[Tuple, ParamSpec]]:
+    """(path, spec) over a defs tree in path order."""
+    if isinstance(defs, ParamSpec):
+        yield prefix, defs
+        return
+    items = sorted(defs.items()) if isinstance(defs, dict) else \
+        enumerate(defs)
+    for key, node in items:
+        yield from walk(node, prefix + (key,))
+
+
+def stack_defs(defs, n: int):
     """Prepend a stacked layer axis of size ``n`` to every spec."""
-    return {k: stack_defs(v, n) if isinstance(v, dict)
-            else v._replace(shape=(n,) + v.shape) for k, v in defs.items()}
+    return map_defs(lambda _, spec: spec._replace(shape=(n,) + spec.shape),
+                    defs)
 
 
-def walk(defs: Dict, prefix: Tuple = ()) -> Iterator[Tuple[Tuple, ParamSpec]]:
-    """(path, spec) over a defs tree, dict keys sorted (the JAX order)."""
-    for key in sorted(defs):
-        node = defs[key]
-        if isinstance(node, ParamSpec):
-            yield prefix + (key,), node
-        else:
-            yield from walk(node, prefix + (key,))
-
-
-def param_count(defs: Dict) -> int:
+def param_count(defs) -> int:
     return int(sum(np.prod(spec.shape) for _, spec in walk(defs)))
 
 
@@ -49,56 +67,94 @@ def get_path(tree, path):
     return tree
 
 
-def set_path(tree: Dict, path, value) -> None:
-    for key in path[:-1]:
-        tree = tree.setdefault(key, {})
-    tree[path[-1]] = value
+def leaf_dtype(spec: ParamSpec, dtype: torch.dtype) -> torch.dtype:
+    """The dtype a leaf takes in a tree of ``dtype``."""
+    return spec.dtype or dtype
 
 
-def params_from_numpy(defs: Dict, tree, device: DeviceLike = None,
-                      dtype=torch.float32, what: str = "param") -> Dict:
-    """Nested dict of numpy arrays (the JAX layout) -> nested dict of
-    tensors on ``device`` (None = cuda).  Every leaf of ``defs`` must be in
-    ``tree`` with its shape; raises on a missing leaf or a wrong shape."""
+def params_from_numpy(defs, tree, device: DeviceLike = None,
+                      dtype=torch.float32, what: str = "param"):
+    """Nested dicts/lists of numpy arrays (the JAX layout) -> the same of
+    tensors on ``device`` (None = cuda), each leaf in ``dtype`` unless its
+    spec names its own.  Every leaf of ``defs`` must be in ``tree`` with
+    its shape; raises on a missing leaf or a wrong shape."""
     dev = resolve_device(device)
-    out: Dict = {}
-    for path, spec in walk(defs):
+
+    def leaf(path, spec):
         arr = np.asarray(get_path(tree, path))
         if tuple(arr.shape) != spec.shape:
-            raise ValueError(f"{what} {'/'.join(path)}: shape "
+            raise ValueError(f"{what} {path_name(path)}: shape "
                              f"{tuple(arr.shape)} != {spec.shape}")
         if arr.dtype.name == "bfloat16":     # ml_dtypes bf16 from JAX
             arr = arr.astype(np.float32)
         if not (arr.flags.writeable and arr.flags.c_contiguous):
             arr = np.array(arr)              # torch wants a writable buffer
-        set_path(out, path, torch.from_numpy(arr).to(device=dev, dtype=dtype))
-    return out
+        return torch.from_numpy(arr).to(device=dev,
+                                        dtype=leaf_dtype(spec, dtype))
+    return map_defs(leaf, defs)
 
 
-def init_numpy(defs: Dict, seed: int,
-               zero_scales: Optional[Mapping[str, float]] = None) -> Dict:
-    """Random weights from ``np.random.default_rng(seed)``, drawn leaf by
-    leaf in path order: lecun = N(0, 1/fan_in) over the dimensions each
-    weight contracts, normal = N(0, scale^2), zeros and ones constant.  A
-    zeros leaf named in ``zero_scales`` (by its last key) with a scale > 0
-    is drawn N(0, scale^2) instead.
+def cast_params_(defs, params, dtype: torch.dtype) -> None:
+    """Casts ``params`` in place: each leaf to ``dtype`` but those whose
+    spec names their own dtype, one leaf at a time, the old leaf dropped
+    from its container as its copy is made (a 60 GB float32 tree becomes
+    bf16 in 80 GB of device memory)."""
+    for path, spec in walk(defs):
+        parent = get_path(params, path[:-1])
+        parent[path[-1]] = parent[path[-1]].to(leaf_dtype(spec, dtype))
+
+
+def _std(path, spec: ParamSpec, zero_scales: Mapping[str, float]) -> float:
+    if spec.init == "zeros":
+        return zero_scales.get(path[-1], 0.0)
+    if spec.init == "lecun":
+        return 1.0 / np.sqrt(spec.fan_in)
+    return 0.02 if spec.scale is None else spec.scale
+
+
+def init_numpy(defs, seed: int,
+               zero_scales: Optional[Mapping[str, float]] = None):
+    """Random weights from ``np.random.default_rng(seed)``, float32, drawn
+    leaf by leaf in path order: lecun = N(0, 1/fan_in) over the dimensions
+    each weight contracts, normal = N(0, scale^2), zeros and ones constant.
+    A zeros leaf named in ``zero_scales`` (by its last key) with a scale >
+    0 is drawn N(0, scale^2) instead.
 
     (The JAX initializer takes fan_in as the second-to-last dimension, the
     head count for wq/wk/wv, which saturates the softmax of a random
     model; the port's random weights do not copy that.)"""
     rng = np.random.default_rng(seed)
     zero_scales = zero_scales or {}
-    tree: Dict = {}
-    for path, spec in walk(defs):
-        std = zero_scales.get(path[-1], 0.0) if spec.init == "zeros" else \
-            1.0 / np.sqrt(spec.fan_in) if spec.init == "lecun" else \
-            (0.02 if spec.scale is None else spec.scale)
+
+    def leaf(path, spec):
+        std = _std(path, spec, zero_scales)
         if spec.init == "ones":
-            arr = np.ones(spec.shape, np.float32)
-        elif std > 0:
+            return np.ones(spec.shape, np.float32)
+        if std > 0:
             arr = rng.standard_normal(spec.shape, dtype=np.float32)
             arr *= np.float32(std)
-        else:
-            arr = np.zeros(spec.shape, np.float32)
-        set_path(tree, path, arr)
-    return tree
+            return arr
+        return np.zeros(spec.shape, np.float32)
+    return map_defs(leaf, defs)
+
+
+def init_on_device(defs, seed: int, device: DeviceLike = None,
+                   dtype=torch.float32):
+    """Random weights drawn on ``device`` (None = cuda) from a seeded
+    ``torch.Generator`` there, leaf by leaf in path order, each in its
+    leaf dtype: the distributions of :func:`init_numpy` (not its values),
+    without a float32 copy of the tree on the host — for models too large
+    for the numpy path."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def leaf(path, spec):
+        dt = leaf_dtype(spec, dtype)
+        std = _std(path, spec, {})
+        if spec.init == "ones":
+            return torch.ones(spec.shape, dtype=dt, device=dev)
+        if std > 0:
+            return torch.empty(spec.shape, dtype=dt, device=dev).normal_(
+                0.0, std, generator=gen)
+        return torch.zeros(spec.shape, dtype=dt, device=dev)
+    return map_defs(leaf, defs)

@@ -1,8 +1,9 @@
-"""Port parity for the attention-family LM backbones: configs, parameter
-definitions, ``forward``, ``prefill`` + ``decode_step`` (the SWA ring
-buffer and the int8 cache included) and the blocked attention path — the
-same numpy-seeded weights and inputs through the JAX package and the port,
-on the CPU, at each config's ``reduced()`` size."""
+"""Port parity for the LM backbones (attention, mamba2, the RG-LRU hybrid,
+MoE): configs, parameter definitions and per-leaf dtypes, ``forward``,
+``prefill`` + ``decode_step`` (the SWA ring buffer and the int8 cache
+included) and the blocked attention path — the same numpy-seeded weights
+and inputs through the JAX package and the port, on the CPU, at each
+config's ``reduced()`` size."""
 import dataclasses
 
 import jax
@@ -22,44 +23,81 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import backbone as tb
 from repro_torch.models import pdefs as tpdefs
 from repro_torch.models.convert import (backbone_init_numpy,
+                                        backbone_init_on_device,
                                         backbone_params_from_numpy)
+from repro_torch.tree import flatten_with_paths, leaves
 from tests.test_torch_helpers import CPU, rel_err, to_np, torch_cfg
 
-#: the six attention-family configs the port runs
+#: the six attention-family configs
 ATTN_ARCHS = ["qwen3-0.6b", "granite-8b", "qwen2-72b", "h2o-danube-3-4b",
               "qwen2-vl-2b", "musicgen-medium"]
-UNPORTED = ["mamba2-1.3b", "recurrentgemma-2b", "qwen2-moe-a2.7b",
-            "moonshot-v1-16b-a3b"]
+#: mamba2, the RG-LRU hybrid and the two MoE configs
+SSM_MOE_ARCHS = ["mamba2-1.3b", "recurrentgemma-2b", "qwen2-moe-a2.7b",
+                 "moonshot-v1-16b-a3b"]
+#: every LM config
+LM_ARCHS = ATTN_ARCHS + SSM_MOE_ARCHS
+#: the reduced hybrid has 2 period groups and no tail; this variant adds
+#: a tail of 2 RG-LRU layers (the list path)
+TAIL = "recurrentgemma-2b+tail"
+VARIANTS = {TAIL: ("recurrentgemma-2b", {"num_layers": 8})}
+#: leaves whose spec keeps float32 in a bf16 tree
+F32_LEAVES = {"A_log", "dt_bias", "D", "lam", "router"}
 
 
 def cfgs(name, **changes):
-    cj = dataclasses.replace(jreg.ARCHS[name].reduced(), **changes)
+    base, extra = VARIANTS.get(name, (name, {}))
+    cj = dataclasses.replace(jreg.ARCHS[base].reduced(),
+                             **{**extra, **changes})
     return cj, torch_cfg(cj)
 
 
+def keystr(path) -> str:
+    """A port path as ``jax.tree_util.keystr`` prints it: dict keys as
+    ``['k']``, list indices as ``[0]``."""
+    return "".join(f"[{k!r}]" for k in path)
+
+
+#: leaves initialized to zeros or ones (biases, norm scales, the SSM's
+#: decay, step bias and skip, the RG-LRU gate biases)
+CONSTANT_INITS = ("bq", "bk", "bv", "scale", "A_log", "dt_bias", "D", "b_a",
+                  "b_i")
+
+
 def perturb(tree, seed):
-    """Biases (zeros) and norm scales (ones) moved off their inits, so
-    that the parity checks see them."""
+    """The leaves of :data:`CONSTANT_INITS` moved off their inits, so that
+    the parity checks see them."""
     rng = np.random.default_rng(seed)
 
     def walk(node):
-        for key in sorted(node):
-            if isinstance(node[key], dict):
-                walk(node[key])
-            elif key in ("bq", "bk", "bv", "scale"):
-                node[key] = node[key] + (0.1 * rng.standard_normal(
-                    node[key].shape)).astype(np.float32)
+        items = sorted(node.items()) if isinstance(node, dict) else \
+            enumerate(node)
+        for key, sub in items:
+            if isinstance(sub, (dict, list)):
+                walk(sub)
+            elif key in CONSTANT_INITS:
+                node[key] = sub + (0.1 * rng.standard_normal(
+                    sub.shape)).astype(np.float32)
     walk(tree)
     return tree
+
+
+def jax_params(cj, tree, dtype="float32", defs=None):
+    """A numpy tree as JAX arrays of ``dtype``, each leaf whose ``ParamDef``
+    names a dtype in that one (the reference's ``init_params`` rule)."""
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    defs = jb.build_defs(cj) if defs is None else defs
+    return jax.tree.map(
+        lambda d, a: jnp.asarray(a).astype(jnp.dtype(d.dtype) if d.dtype
+                                           else jdt),
+        defs, tree, is_leaf=jpdefs.is_def)
 
 
 def param_trees(cj, ct, seed=0, dtype="float32"):
     """(JAX params, port params) from one numpy tree."""
     tree = perturb(backbone_init_numpy(ct, seed), seed + 1)
-    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
     tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
-    pj = jax.tree.map(lambda a: jnp.asarray(a).astype(jdt), tree)
-    return pj, backbone_params_from_numpy(tree, ct, CPU, tdt)
+    return jax_params(cj, tree, dtype), backbone_params_from_numpy(
+        tree, ct, CPU, tdt)
 
 
 def inputs(cfg, b, s, seed=1):
@@ -95,23 +133,51 @@ def test_configs_and_cells_match_jax():
         treg.get_arch("nope")
 
 
-@pytest.mark.parametrize("name", ATTN_ARCHS)
+@pytest.mark.parametrize("name", LM_ARCHS)
 def test_defs_match_jax(name):
-    """The same leaf paths and shapes as the reference's ``build_defs``, at
-    full width; their sizes, norms and biases aside, are the config's
-    ``param_count``."""
+    """The same leaf paths (list indices included), shapes and dtype
+    overrides as the reference's ``build_defs``, at full width; their
+    sizes, norms, biases and SSM/RG-LRU scalars aside, are the config's
+    ``param_count`` (not for MoE, whose count has no pad experts)."""
     cj, ct = jreg.ARCHS[name], treg.get_arch(name)
-    want = {jax.tree_util.keystr(p): d.shape for p, d in
+    want = {jax.tree_util.keystr(p): (d.shape, d.dtype) for p, d in
             jax.tree_util.tree_flatten_with_path(
                 jb.build_defs(cj), is_leaf=jpdefs.is_def)[0]}
-    got = {"".join(f"['{k}']" for k in path): spec.shape
+    got = {keystr(path): (spec.shape, spec.dtype and str(spec.dtype)[6:])
            for path, spec in tpdefs.walk(tb.build_defs(ct))}
     assert got == want
     defs = tb.build_defs(ct)
     assert tpdefs.param_count(defs) == jpdefs.param_count(jb.build_defs(cj))
     core = sum(int(np.prod(s.shape)) for p, s in tpdefs.walk(defs)
-               if p[-1] not in ("scale", "bq", "bk", "bv"))
-    assert core == ct.param_count()
+               if p[-1] not in ("scale", "bq", "bk", "bv", "A_log",
+                                "dt_bias", "D", "lam"))
+    assert ct.is_moe or core == ct.param_count()
+
+
+@pytest.mark.parametrize("name", SSM_MOE_ARCHS[:3])
+def test_bf16_tree_keeps_the_float32_leaves(name):
+    """In a bf16 tree, exactly the SSM decays (A_log, dt_bias, D), the
+    RG-LRU's lam and the MoE router stay float32, in both packages: the
+    JAX package's own init, and the port's from numpy, cast in place and
+    drawn on the device."""
+    cj, ct = cfgs(name)
+    pj = jb.init(cj, jax.random.PRNGKey(0), jnp.bfloat16)
+    want = {jax.tree_util.keystr(p) for p, a in
+            jax.tree_util.tree_flatten_with_path(pj)[0]
+            if a.dtype == jnp.float32}
+    assert want and {w.split("'")[-2] for w in want} <= F32_LEAVES
+    defs = tb.build_defs(ct)
+    tree = backbone_init_numpy(ct, 0)
+    cast = backbone_params_from_numpy(tree, ct, CPU)
+    tpdefs.cast_params_(defs, cast, torch.bfloat16)
+    for params in (
+            backbone_params_from_numpy(tree, ct, CPU, torch.bfloat16), cast,
+            backbone_init_on_device(ct, 0, CPU)):
+        got = {keystr(p) for p, x in flatten_with_paths(params)
+               if x.dtype == torch.float32}
+        assert got == want
+        assert {x.dtype for x in leaves(params)} == {torch.float32,
+                                                     torch.bfloat16}
 
 
 def test_params_from_numpy_checks_every_leaf():
@@ -130,43 +196,63 @@ def test_params_from_numpy_checks_every_leaf():
         backbone_params_from_numpy(tree, ct, CPU)
 
 
-@pytest.mark.parametrize("name", UNPORTED)
-def test_unported_blocks_raise_naming_the_roadmap_item(name):
-    ct = treg.get_arch(name).reduced()
-    for call in (lambda: tb.build_defs(ct),
-                 lambda: tb.init_cache(ct, 1, 8, torch.float32, CPU),
-                 lambda: tb.trunk({}, ct, torch.zeros(1, 2, ct.d_model),
-                                  torch.zeros(1, 2, dtype=torch.int32))):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 3b"):
-            call()
-
-
 # --- forward ---------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ATTN_ARCHS)
+@pytest.mark.parametrize("name", LM_ARCHS + [TAIL])
 def test_forward_matches_jax(name):
+    """40 tokens: past mamba2's reduced chunk of 16 and ragged (the
+    padding), the MoE aux loss within 1e-5."""
     cj, ct = cfgs(name)
     pj, pt = param_trees(cj, ct)
-    x = inputs(cj, 2, 32)
+    x = inputs(cj, 2, 40)
     want, aux_j = jb.forward(pj, cj, jnp.asarray(x))
     with torch.no_grad():
         got, aux_t = tb.forward(pt, ct, torch.from_numpy(x))
-    assert got.shape == (2, 32, cj.vocab_size) and got.dtype == torch.float32
-    assert float(aux_t) == float(aux_j) == 0.0
+    assert got.shape == (2, 40, cj.vocab_size) and got.dtype == torch.float32
+    assert aux_t.dtype == torch.float32
+    assert (float(aux_t) == float(aux_j) == 0.0) if not cj.is_moe else \
+        rel_err(aux_t, aux_j) < 1e-5
     assert rel_err(got, want) < 1e-4
 
 
-def test_forward_bf16_matches_jax():
-    cj, ct = cfgs("qwen3-0.6b")
+@pytest.mark.parametrize("name", ["qwen3-0.6b", "recurrentgemma-2b"])
+def test_forward_bf16_matches_jax(name):
+    """bf16 trees (the float32 leaves kept in both) through both packages:
+    the logits within 2e-2."""
+    cj, ct = cfgs(name)
     pj, pt = param_trees(cj, ct, dtype="bfloat16")
-    x = inputs(cj, 2, 32)
+    x = inputs(cj, 2, 40)
     want, _ = jb.forward(pj, cj, jnp.asarray(x))
     with torch.no_grad():
         got, _ = tb.forward(pt, ct, torch.from_numpy(x))
     assert got.dtype == torch.bfloat16
     assert rel_err(got, want) < 2e-2
+
+
+@pytest.mark.parametrize("name", ["mamba2-1.3b", "qwen2-moe-a2.7b"])
+def test_forward_bf16_is_as_close_to_float32_as_jax(name):
+    """mamba2 and MoE in bf16 (the float32 leaves kept in both): bf16
+    rounding compounds over the layers (mamba2's gated SSD output, ~1% of
+    its scale a layer) or flips top-k choices (MoE), so the reference's
+    own bf16 logits sit 4% (mamba2) and 30% (MoE) of their scale from its
+    float32 ones here, and no bf16 implementation meets 2e-2 of another.
+    What holds: the port's bf16 logits are no further from the float32
+    ones than the reference's, and agree with the reference's within
+    that distance."""
+    cj, ct = cfgs(name)
+    x = inputs(cj, 2, 40)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        pj, pt = param_trees(cj, ct, dtype=dtype)
+        with torch.no_grad():
+            got, _ = tb.forward(pt, ct, torch.from_numpy(x))
+        out[dtype] = got, jb.forward(pj, cj, jnp.asarray(x))[0]
+    (t32, j32), (t16, j16) = out["float32"], out["bfloat16"]
+    assert t16.dtype == torch.bfloat16 and rel_err(t32, j32) < 1e-4
+    jax_err = rel_err(j16, j32)
+    assert rel_err(t16, t32) < 1.5 * jax_err
+    assert rel_err(t16, j16) < 1.5 * jax_err
 
 
 # --- prefill + decode ----------------------------------------------------------------
@@ -193,14 +279,16 @@ def _decode_run(pkg, params, cfg, x, p0, cache):
     return to_np(plog), to_np(cat(outs, 1)), cache
 
 
-@pytest.mark.parametrize("name", ATTN_ARCHS)
+@pytest.mark.parametrize("name", LM_ARCHS + [TAIL])
 def test_prefill_then_decode_matches_jax(name):
-    """The reference's prefill/decode test on both packages: prefill 16
-    tokens, decode 8; logits and the final cache against the JAX pair
-    (1e-4), and the decode logits against the JAX full forward."""
+    """The reference's prefill/decode test on both packages: prefill 20
+    tokens (mamba2: a chunk and a padded one), decode 8; logits and every
+    leaf of the final cache (the structure too: a hybrid's periods and
+    tail) against the JAX pair (1e-4; indices exact), and the decode
+    logits against the JAX full forward."""
     cj, ct = cfgs(name)
     pj, pt = param_trees(cj, ct)
-    b, s, p0 = 2, 24, 16
+    b, s, p0 = 2, 28, 20
     x = inputs(cj, b, s, seed=2)
     pl_j, dl_j, cache_j = _decode_run(
         "jax", pj, cj, x, p0, jb.init_cache(cj, b, s, jnp.float32))
@@ -209,11 +297,17 @@ def test_prefill_then_decode_matches_jax(name):
     assert cache_t2 is cache_t                       # written in place
     assert rel_err(pl_t, pl_j) < 1e-4
     assert rel_err(dl_t, dl_j) < 1e-4
-    for key in ("k", "v"):
-        assert rel_err(cache_t[key], cache_j[key]) < 1e-4, key
-    assert cache_t["index"].dtype == torch.int32
-    np.testing.assert_array_equal(to_np(cache_t["index"]),
-                                  np.asarray(cache_j["index"]))
+    flat_j = jax.tree_util.tree_flatten_with_path(cache_j)[0]
+    flat_t = flatten_with_paths(cache_t)
+    assert [keystr(p) for p, _ in flat_t] == \
+        [jax.tree_util.keystr(p) for p, _ in flat_j]
+    for (path, got), (_, want) in zip(flat_t, flat_j):
+        assert got.dtype == getattr(torch, str(want.dtype)), path
+        if path[-1] == "index":
+            np.testing.assert_array_equal(to_np(got), np.asarray(want))
+        else:
+            assert rel_err(got, want) < 1e-4, path
+    assert int(tb.cache_index(ct, cache_t)) == s
     ref, _ = jb.forward(pj, cj, jnp.asarray(x))
     assert rel_err(dl_t, np.asarray(ref)[:, p0:]) < 1e-4
 

@@ -16,10 +16,12 @@ from repro.optim import adamw_init as jadamw_init
 from repro_torch.launch import steps as TS
 from repro_torch.launch import train as ttrain
 from repro_torch.models import backbone as tb
+from repro_torch.models import pdefs as tpdefs
 from repro_torch.models.convert import backbone_params_from_numpy
 from repro_torch.optim import adamw_init
 from repro_torch.tree import flatten_with_paths, leaves
-from tests.test_torch_backbone import ATTN_ARCHS, cfgs, inputs, param_trees
+from tests.test_torch_backbone import (LM_ARCHS, TAIL, cfgs, inputs,
+                                      param_trees)
 from tests.test_torch_helpers import CPU, rel_err
 
 
@@ -38,10 +40,11 @@ def per_leaf_err(got, want) -> float:
     return max(rel_err(a, b) for a, b in zip(g, w))
 
 
-@pytest.mark.parametrize("name", ATTN_ARCHS)
+@pytest.mark.parametrize("name", LM_ARCHS + [TAIL])
 def test_lm_loss_and_grads_match_jax(name):
-    """``lm_loss`` (chunked cross entropy, remat'd trunk) and the gradient
-    of every leaf against ``jax.value_and_grad``: 1e-4 relative."""
+    """``lm_loss`` (chunked cross entropy, remat'd trunk or period groups;
+    the MoE aux term) and the gradient of every leaf against
+    ``jax.value_and_grad``: 1e-4 relative."""
     cj, ct = cfgs(name)
     pj, pt = param_trees(cj, ct, seed=9)
     b = batch_of(cj, 4, 16, seed=10)
@@ -119,7 +122,8 @@ def _jax_init_params(name):
     return ct, backbone_params_from_numpy(tree, ct, CPU)
 
 
-@pytest.mark.parametrize("name", ["qwen3-0.6b", "musicgen-medium"])
+@pytest.mark.parametrize("name", ["qwen3-0.6b", "musicgen-medium",
+                                  "qwen2-moe-a2.7b"])
 def test_port_driver_trains_what_the_jax_driver_trains(name):
     """The JAX package's ``train.main`` and the port's driver loop from the
     same init on the same token batches (random frame embeddings for
@@ -151,3 +155,35 @@ def test_lm_checkpoints_cross_both_ways(tmp_path):
                                   str(tmp_path / "t")))
     assert len(resumed_j) == 2
     np.testing.assert_allclose(resumed_j, whole_t[2:], rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["mamba2-1.3b", TAIL])
+def test_bf16_params_checkpoints_cross_both_ways(name, tmp_path):
+    """bf16 params (the float32 leaves kept) of mamba2 and of the hybrid
+    with a tail, saved by either package and restored by the other into
+    its own bf16 template: every leaf equal, of its dtype, under the
+    reference's names (the tail's as ``params/tail/0/...``)."""
+    import json
+
+    from repro.ckpt import checkpoint as jckpt
+    from repro_torch.ckpt import checkpoint as tckpt
+
+    cj, ct = cfgs(name)
+    pj, pt = param_trees(cj, ct, seed=14, dtype="bfloat16")
+    tckpt.save_pytree({"step": 3, "params": pt}, tmp_path / "t")
+    names = [leaf["name"] for leaf in json.loads(
+        (tmp_path / "t" / "manifest.json").read_text())["leaves"]]
+    assert names == jckpt._flatten_with_names({"step": 3, "params": pj})[0]
+    if ct.is_hybrid:
+        assert "params/tail/0/rec/lam" in names
+    back_j = jckpt.load_pytree({"step": 0, "params": pj}, tmp_path / "t")
+    jckpt.save_pytree({"step": 3, "params": pj}, tmp_path / "j")
+    back_t = tckpt.load_pytree({"step": 0, "params": pt}, tmp_path / "j")
+    assert int(back_j["step"]) == int(back_t["step"]) == 3
+    for (path, a), b, c in zip(flatten_with_paths(pt),
+                               jax.tree.leaves(pj),
+                               jax.tree.leaves(back_j["params"])):
+        assert c.dtype == b.dtype and np.array_equal(
+            np.asarray(c, np.float32), np.asarray(b, np.float32)), path
+        got = tpdefs.get_path(back_t["params"], path)
+        assert got.dtype == a.dtype and torch.equal(got, a), path

@@ -1,5 +1,5 @@
-"""Port parity for the DiffusionWrapper (any attention-family backbone as a
-causal latent-sequence denoiser) and ParaTAA with it as eps_theta: the
+"""Port parity for the DiffusionWrapper (any LM backbone as a causal
+latent-sequence denoiser: attention, mamba2, the RG-LRU hybrid, MoE) and ParaTAA with it as eps_theta: the
 same numpy-seeded weights, latents and noise through the JAX package and
 the port, on the CPU, at each config's ``reduced()`` size."""
 import jax
@@ -23,7 +23,7 @@ from repro_torch.sampling import get_sampler as tget
 from repro_torch.sampling import run as trun
 from repro_torch.sampling import sequential_sample as tseq
 from repro_torch.tree import leaves
-from tests.test_torch_backbone import ATTN_ARCHS, cfgs, perturb
+from tests.test_torch_backbone import ATTN_ARCHS, cfgs, keystr, perturb
 from tests.test_torch_helpers import CPU, normal, rel_err
 
 LATENT, TOKENS, T = 8, 16, 20
@@ -38,19 +38,17 @@ def wrapper_trees(name, seed=0):
             ct, wrapper_params_from_numpy(tree, ct, LATENT, CPU))
 
 
-@pytest.mark.parametrize("name", ATTN_ARCHS)
-def test_wrapper_defs_match_jax(name):
+def check_wrapper_defs(name):
     cj, ct = cfgs(name)
     want = {jax.tree_util.keystr(p): d.shape for p, d in
             jax.tree_util.tree_flatten_with_path(
                 jdit.wrapper_defs(cj, LATENT), is_leaf=jpdefs.is_def)[0]}
-    got = {"".join(f"['{k}']" for k in path): spec.shape
+    got = {keystr(path): spec.shape
            for path, spec in tpdefs.walk(tdit.wrapper_defs(ct, LATENT))}
     assert got == want
 
 
-@pytest.mark.parametrize("name", ATTN_ARCHS)
-def test_wrapper_apply_matches_jax(name):
+def check_wrapper_apply(name):
     cj, pj, ct, pt = wrapper_trees(name)
     lat = normal(2, 3, TOKENS, LATENT)
     t = np.array([10.0, 500.0, 999.0], np.float32)
@@ -59,6 +57,16 @@ def test_wrapper_apply_matches_jax(name):
                              torch.from_numpy(t))
     assert got.shape == (3, TOKENS, LATENT)
     assert rel_err(got, want) < 1e-4
+
+
+@pytest.mark.parametrize("name", ATTN_ARCHS)
+def test_wrapper_defs_match_jax(name):
+    check_wrapper_defs(name)
+
+
+@pytest.mark.parametrize("name", ATTN_ARCHS)
+def test_wrapper_apply_matches_jax(name):
+    check_wrapper_apply(name)
 
 
 def test_untrained_wrapper_is_zero():
@@ -92,9 +100,7 @@ def test_wrapper_remat_gives_the_same_values():
         assert (a is None and b is None) or torch.equal(a, b)
 
 
-@pytest.mark.parametrize("fuse", [False, True], ids=["staged", "fused"])
-@pytest.mark.parametrize("name", ATTN_ARCHS)
-def test_parataa_on_the_wrapper_matches_jax(name, fuse):
+def check_parataa_on_the_wrapper(name, fuse):
     """ParaTAA (``run``, taa, DDIM T=20) with the wrapper as eps_theta in
     both packages from the same noise: equal iters and nfe, x0 and the
     trajectory within 1e-4 relative; and within 2e-2 of the port's
@@ -118,6 +124,12 @@ def test_parataa_on_the_wrapper_matches_jax(name, fuse):
     assert rel_err(got.x0, x_seq) < 2e-2
     assert rel_err(x_seq, jseq(lambda x, taus: jdit.wrapper_apply(
         pj, cj, x, taus), jddim(T), jnp.asarray(xi))) < 1e-4
+
+
+@pytest.mark.parametrize("fuse", [False, True], ids=["staged", "fused"])
+@pytest.mark.parametrize("name", ATTN_ARCHS)
+def test_parataa_on_the_wrapper_matches_jax(name, fuse):
+    check_parataa_on_the_wrapper(name, fuse)
 
 
 def test_torch_backbone_denoiser_example_runs_on_the_cpu():
