@@ -119,17 +119,46 @@ is not 0):
    factor of 64, batch 2, prefill 256, 32 decodes; each of (b)-(d1) in
    float32 (decode logits within 2e-2 of ``forward``'s over the same
    tokens; 4128 = a padded chunk for mamba2) and then, cast in place, in
-   bf16 (finite; its distances to both forwards printed), the last decode
+   bf16 (finite; within (f)'s bound of both forwards), the last decode
    of each run under sync-debug mode "error", the cache's bytes equal at
    10x the length for (b) and (c); (d2) qwen2-moe-a2.7b in bf16 at its own
    capacity factor 1.25 (slots dropped), batch 4, prefill 2048, 8 decodes,
    finite; each run's prefill ms, decode ms a token and peak memory
    printed; (e) two float32 steps of ``train.py --arch mamba2-1.3b --batch
    8 --seq 128`` with a checkpoint through ``build/chip_smoke_ssm_ckpt``
-   (deleted after) read back ``torch.equal``, no kernel launched.
+   (deleted after) read back ``torch.equal``, no kernel launched; (f)
+   before (b), mamba2-1.3b's decode against ``forward`` over the same
+   prefix (batch 2, prefill 2048, 16 decodes) layer by layer, from the
+   hidden state after each layer, in bf16 and float32, beside the bf16
+   forward's own distance from float32 (per layer, and each distance's
+   mean growth a layer; the bf16 gap below ``BF16_DECODE_FACTOR`` of the
+   bf16 forward's in every layer); (b)-(d1)'s bf16 decode is then checked
+   within ``BF16_DECODE_FACTOR`` times the bf16 forward's distance from
+   float32, of the bf16 forward and of the float32 forward.
+
+9. the serve switches and the dry-run on the card: (a) phase 3's fused
+   DiT-XL path and sequential under ``apply_backend_tune(["--backend-
+   tune"])`` (TF32), then the switches restored: every request converged,
+   x0 within 2e-2 of TF32 sequential, iterations within 2 of phase 3's;
+   DiT and rest ms an iteration and the walls printed (run after phase
+   3); (b) ``serve.main`` at its own geometry (DiT-XL, 16 tokens, T=50, 2
+   requests, phase 3's weights) with ``--use-pallas off`` and ``auto``, in
+   turns (off, auto, auto, off), fused and staged: equal iters/nfe, x0
+   within 1e-4, no K1-K3 launch with off, K3 once an iteration (fused) or
+   K1 and K2 (staged) with auto; walls and the difference an iteration
+   printed (run after phase 5); (c) the dry-run
+   (``repro_torch.launch.dryrun.run_cell``) on ``meta`` for the bf16
+   prefills of phases 7 and 8 (qwen3-0.6b 4 x 3072, mamba2-1.3b 4 x
+   4096), then the same prefill on the card under the same counter: its
+   FLOPs equal the dry-run's, the dry-run's peak within 25% of
+   ``torch.cuda.max_memory_allocated()``; the roofline bound beside the
+   measured prefill; (d) ``examples/torch_{train_and_serve,
+   trajectory_variation,quickstart}.py`` at their defaults on cuda.
 
 Then one JSON line of per-kernel numbers (K1-K3 with ``wrapper_launches``,
-phase 7's, and ``ssm_wrapper_launches``, phase 8's), and last the line
+phase 7's, ``ssm_wrapper_launches``, phase 8's, and
+``use_pallas_auto_launches``, phase 9 (b)'s; K3 with ``tf32_launches``,
+phase 9 (a)'s), and last the line
 ``{"ok": true, "device": {...}}``.  Without CUDA, or run from a directory
 without the repository's ``src/``, it fails before printing any result.
 """
@@ -154,10 +183,11 @@ T_STEPS, ORDER_K, HISTORY_M, REQUESTS, NUM_TOKENS = 25, 8, 3, 2, 256
 # reference's zeros eps is identically 0 and the DiT never shapes the solve
 ADA_SCALE = 0.02
 SEED = 0
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
-F32_FLOPS_PER_S = 67e12       # H100 SXM float32, outside the tensor cores
-BF16_TC_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
-TF32_TC_FLOPS_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
+# the H100 SXM constants of every bound here and of the dry-run's
+# roofline: one source, repro_torch.roofline.analysis
+from repro_torch.roofline.analysis import (  # noqa: E402
+    F32_FLOPS as F32_FLOPS_PER_S, HBM_BW as HBM_BYTES_PER_S,
+    PEAK_FLOPS as BF16_TC_FLOPS_PER_S, TF32_FLOPS as TF32_TC_FLOPS_PER_S)
 TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {name: CSRC + f"{name}.cu" for name in (
@@ -757,7 +787,8 @@ def serve_args():
     return argparse.Namespace(
         arch="dit-xl", steps_T=T_STEPS, solver="taa", mixed_keys=2,
         sampler="ddim", order_k=ORDER_K, history_m=HISTORY_M, window=0,
-        fuse_round=True, batch_size=SERVE_SLOTS, chunk_iters=SERVE_CHUNK)
+        use_pallas="auto", fuse_round=True, batch_size=SERVE_SLOTS,
+        chunk_iters=SERVE_CHUNK)
 
 
 class RoundTimer:
@@ -1691,8 +1722,10 @@ def lm_check(phase, cfg, params, batch, prompt, decode, *,
     """The model in float32, then (cast in place) in bf16, through
     :func:`lm_run`.  Checks: in float32, the decode logits (and the
     prefill's last) within 2e-2 of the logits' scale of ``forward``'s
-    over the same tokens; in bf16, finite (its distances to the float32
-    and bf16 forwards printed: bf16 rounding compounds over depth).
+    over the same tokens; in bf16, finite and within
+    ``BF16_DECODE_FACTOR`` times the bf16 forward's distance from the
+    float32 forward, of each forward (bf16 rounding compounds over depth:
+    phase 8 (f)).
     ``const_memory``: the cache's bytes equal at 10x the length."""
     import torch
 
@@ -1719,11 +1752,20 @@ def lm_check(phase, cfg, params, batch, prompt, decode, *,
     cast_params_(backbone.build_defs(cfg), params, torch.bfloat16)
     free_card()
     r16 = lm_run(phase, cfg, params, batch, prompt, decode)
+    d_dec, d_fwd = rel(r16["dec"], r16["ref"][:, 1:]), rel(r16["ref"], ref)
+    d_dec32 = rel(r16["dec"], ref[:, 1:])
     print(f"{phase} bf16: decode logits against the bf16 forward's rel err "
-          f"{rel(r16['dec'], r16['ref'][:, 1:])}, against the float32 "
-          f"forward's {rel(r16['dec'], ref[:, 1:])}; the bf16 forward "
-          f"against the float32 one {rel(r16['ref'], ref)}")
-    return dict(float32=r32, bfloat16=r16, err=err, err_last=err_last)
+          f"{d_dec}, against the float32 forward's {d_dec32}; the bf16 "
+          f"forward against the float32 one {d_fwd}; decode's distances "
+          f"{d_dec / d_fwd}, {d_dec32 / d_fwd} of the bf16 forward's "
+          f"(bound {BF16_DECODE_FACTOR} each, phase 8 (f))")
+    check(d_dec < BF16_DECODE_FACTOR * d_fwd
+          and d_dec32 < BF16_DECODE_FACTOR * d_fwd,
+          f"{phase} bf16 decode off the bf16 forward by {d_dec}, the "
+          f"float32 forward by {d_dec32}: {d_dec / d_fwd}, "
+          f"{d_dec32 / d_fwd} of the bf16 forward's distance from float32")
+    return dict(float32=r32, bfloat16=r16, err=err, err_last=err_last,
+                bf16_ratio=d_dec / d_fwd)
 
 
 def ssm_moe_path(ckpt_dir: Path):
@@ -1760,6 +1802,8 @@ def ssm_moe_path(ckpt_dir: Path):
     t1 = time.monotonic()
     lm = params.pop("backbone")
     del params
+    free_card()
+    out["layers"] = layer_by_layer(cfg, lm)
     free_card()
     out["ssm"] = lm_check("phase 8 (b)", cfg, lm, 4, 4096, 32)
     del lm
@@ -1801,6 +1845,374 @@ def ssm_moe_path(ckpt_dir: Path):
                             phase="phase 8 (e)")
     print(f"phase 8 seconds: (a) {t1 - t0}, (b) {t2 - t1}, (c) {t3 - t2}, "
           f"(d) {t4 - t3}, (e) {time.monotonic() - t4}")
+    return out
+
+
+# --- phase 8 (f): bf16 decode against bf16 forward, layer by layer ---------
+
+#: (f): batch, prompt tokens (8 chunks) and decode steps
+LAYER_BATCH, LAYER_PROMPT, LAYER_DECODE = 2, 2048, 16
+#: the bf16 runs' bound (phase 8 (b)-(d1)), from (f)'s measurement: the
+#: decode gap is bf16 rounding (the first layer's products at another
+#: row count) grown a layer at the rate bf16 grows away from float32, so
+#: decode's logits lie within this multiple of the bf16 forward's own
+#: distance from the float32 forward, both of the bf16 forward's and of
+#: the float32 forward's (measured 0.15-0.65 of it in every layer, 0.52-
+#: 0.87 and 1.04-1.17 at the logits of the four runs; PERF.md §6)
+BF16_DECODE_FACTOR = 1.5
+
+
+class LayerRecorder:
+    """While active, keeps each layer's output hidden state (at the
+    positions ``sl``, in float32) as ``backbone.trunk`` produces it."""
+
+    def __init__(self):
+        from repro_torch.models import backbone
+
+        self.mod, self.real = backbone, backbone._apply_layer
+        self.states, self.sl = [], slice(None)
+
+    def __enter__(self):
+        def recording(*args, **kw):
+            h, aux = self.real(*args, **kw)
+            self.states.append(h[:, self.sl].float().clone())
+            return h, aux
+        self.mod._apply_layer = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._apply_layer = self.real
+
+    def take(self):
+        out, self.states = self.states, []
+        return out
+
+
+def layer_states(cfg, params, tokens, prompt, decode):
+    """Per layer, the (B, decode, d) hidden states at the decode positions:
+    from ``forward`` over all the tokens, and from ``prefill`` of the
+    prompt then ``decode`` steps.  Returns (forward's, decode's, forward's
+    logits there, decode's logits)."""
+    import torch
+
+    from repro_torch.models import backbone
+
+    dtype = params["embed"].dtype
+    with torch.no_grad(), LayerRecorder() as rec:
+        rec.sl = slice(prompt, prompt + decode)
+        logits, _ = backbone.forward(params, cfg, tokens)
+        fwd = rec.take()
+        fwd_logits = logits[:, prompt:prompt + decode].float()
+        del logits
+        cache = backbone.init_cache(cfg, tokens.shape[0], prompt + decode,
+                                    dtype, tokens.device)
+        rec.sl = slice(None)
+        backbone.prefill(params, cfg, tokens[:, :prompt], cache)
+        rec.take()
+        steps, outs = [], []
+        for i in range(decode):
+            out, _ = backbone.decode_step(
+                params, cfg, tokens[:, prompt + i:prompt + i + 1], cache)
+            outs.append(out.float())
+            steps.append(rec.take())
+    dec = [torch.cat([s[l] for s in steps], dim=1) for l in range(len(fwd))]
+    return fwd, dec, fwd_logits, torch.cat(outs, dim=1)
+
+
+def layer_by_layer(cfg, params32):
+    """Phase 8 (f): mamba2-1.3b's decode against its forward over the same
+    prefix, layer by layer from the hidden state after each layer, in bf16
+    and in float32, beside the bf16 forward's own distance from float32:
+    where the decode gap grows, and whether it grows as bf16 rounding
+    does."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import backbone
+    from repro_torch.models.pdefs import leaf_dtype, map_defs, get_path
+
+    defs = backbone.build_defs(cfg)
+    params16 = map_defs(lambda path, spec: get_path(params32, path).to(
+        leaf_dtype(spec, torch.bfloat16)), defs)
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LAYER_BATCH, LAYER_PROMPT + LAYER_DECODE))
+        .astype(np.int32)).to(params32["embed"].device)
+    t0 = time.monotonic()
+    f32, d32, lf32, ld32 = layer_states(cfg, params32, tokens, LAYER_PROMPT,
+                                        LAYER_DECODE)
+    f16, d16, lf16, ld16 = layer_states(cfg, params16, tokens, LAYER_PROMPT,
+                                        LAYER_DECODE)
+    del params16
+    rows = []
+    for l in range(len(f32)):
+        rows.append(dict(layer=l, dec16_fwd16=rel(d16[l], f16[l]),
+                         fwd16_fwd32=rel(f16[l], f32[l]),
+                         dec16_fwd32=rel(d16[l], f32[l]),
+                         dec32_fwd32=rel(d32[l], f32[l])))
+    logits = dict(dec16_fwd16=rel(ld16, lf16), fwd16_fwd32=rel(lf16, lf32),
+                  dec16_fwd32=rel(ld16, lf32), dec32_fwd32=rel(ld32, lf32))
+    print(f"phase 8 (f) {SSM_ARCH} layer by layer (batch {LAYER_BATCH}, "
+          f"prefill {LAYER_PROMPT}, {LAYER_DECODE} decodes; each distance "
+          f"max|a - b| / max|b| of the hidden state after the layer at the "
+          f"decode positions; {time.monotonic() - t0} s):")
+    print("phase 8 (f) per layer: dec16/fwd16 = bf16 decode vs bf16 "
+          "forward, fwd16/fwd32 = bf16 forward vs float32 forward, "
+          "dec16/fwd32, dec32/fwd32 = float32 decode vs float32 forward")
+    for r in rows:
+        print(f"phase 8 (f) layer {r['layer']}: {r['dec16_fwd16']} "
+              f"{r['fwd16_fwd32']} {r['dec16_fwd32']} {r['dec32_fwd32']}")
+
+    def growth(key):
+        """The mean factor a layer multiplies the distance by (geometric,
+        over the layers after the first where it is nonzero)."""
+        vals = [r[key] for r in rows if r[key] > 0]
+        if len(vals) < 2:
+            return None
+        return math.exp((math.log(vals[-1]) - math.log(vals[0]))
+                        / (len(vals) - 1))
+
+    ratio = [r["dec16_fwd16"] / r["fwd16_fwd32"] for r in rows
+             if r["fwd16_fwd32"] > 0]
+    summary = dict(logits=logits, growth={k: growth(k) for k in (
+        "dec16_fwd16", "fwd16_fwd32", "dec16_fwd32", "dec32_fwd32")},
+        ratio_min=min(ratio), ratio_max=max(ratio),
+        first_nonzero={k: next((r["layer"] for r in rows if r[k] > 0), None)
+                       for k in ("dec16_fwd16", "fwd16_fwd32",
+                                 "dec32_fwd32")})
+    print(f"phase 8 (f) logits: {logits}; mean growth a layer "
+          f"{summary['growth']}; bf16 decode-vs-forward over the bf16 "
+          f"forward's distance from float32, per layer, from "
+          f"{summary['ratio_min']} to {summary['ratio_max']}; first layer "
+          f"with a nonzero distance {summary['first_nonzero']}")
+    check(all(math.isfinite(v) for v in logits.values()),
+          "phase 8 (f): a distance is not finite")
+    check(summary["ratio_max"] < BF16_DECODE_FACTOR,
+          f"phase 8 (f): bf16 decode's gap {summary['ratio_max']} of the "
+          f"bf16 forward's distance from float32 in a layer")
+    check(logits["dec32_fwd32"] < 2e-2,
+          f"phase 8 (f): float32 decode off forward by "
+          f"{logits['dec32_fwd32']}")
+    return dict(rows=rows, **summary)
+
+
+# --- phase 9: the serve switches and the dry-run on the card ----------------
+
+#: (b): serve.main's own geometry (DiT-XL at full width, 16 tokens, T=50)
+USE_PALLAS_FLAGS = ["--steps-T", "50", "--requests", "2", "--batch-size",
+                    "2"]
+#: (c): the prefills of phases 7 and 8, bf16: (arch, batch, prompt)
+DRYRUN_CELLS = (("qwen3-0.6b", 4, 3072), ("mamba2-1.3b", 4, 4096))
+
+
+def tf32_path(params, cfg, runs):
+    """Phase 9 (a): phase 3's fused DiT-XL path (and sequential) with the
+    switches ``--backend-tune`` sets (TF32), then the switches restored."""
+    import numpy as np
+
+    from repro_torch.core import ddim_coeffs
+    from repro_torch.launch.backend import (apply_backend_tune, read_settings,
+                                            write_settings)
+    from repro_torch.sampling import get_sampler
+
+    before = read_settings()
+    check(apply_backend_tune(["--backend-tune"]),
+          f"phase 9 (a): --backend-tune changed nothing ({before})")
+    try:
+        print(f"phase 9 (a) switches {read_settings()} (were {before})")
+        coeffs = ddim_coeffs(T_STEPS)
+        requests = [r.request for r in runs["taa fused"]["results"]]
+        out = {}
+        for label, spec in (
+                ("taa fused", get_sampler("taa", fuse_round=True,
+                                          order_k=ORDER_K,
+                                          history_m=HISTORY_M)),
+                ("seq", get_sampler("seq"))):
+            out[label] = serve_once(f"phase 9 (a) TF32 {label}", params, cfg,
+                                    coeffs, spec, requests)
+    finally:
+        write_settings(before)
+    f32_iters = runs["taa fused"]["device_iters"]
+    fused = out["taa fused"]
+    iters = fused["device_iters"]
+    dit = fused["dit_ms"] / max(iters, 1)
+    rest = fused["wall_s"] * 1e3 / max(iters, 1) - dit
+    errs, errs32 = [], []
+    for r, s, s32 in zip(fused["results"], out["seq"]["results"],
+                         runs["seq"]["results"]):
+        check(r.converged, f"phase 9 (a): request {r.request} not converged")
+        errs.append(float(np.max(np.abs(r.x0 - s.x0)) / np.max(np.abs(s.x0))))
+        errs32.append(float(np.max(np.abs(r.x0 - s32.x0))
+                            / np.max(np.abs(s32.x0))))
+    print(f"phase 9 (a) TF32 fused: {iters} iterations (float32: "
+          f"{f32_iters}), DiT {dit} ms/iter, rest {rest} ms/iter, dispatch "
+          f"wall {fused['wall_s']} s (float32 {runs['taa fused']['wall_s']} "
+          f"s), TF32 sequential wall {out['seq']['wall_s']} s; x0 against "
+          f"TF32 sequential rel err {errs} (bound 2e-2), against float32 "
+          f"sequential {errs32}; K3 launches {fused['launches']}")
+    check(max(errs) < 2e-2, f"phase 9 (a): x0 off TF32 sequential {errs}")
+    check(abs(iters - f32_iters) <= 2,
+          f"phase 9 (a): {iters} iterations against float32's {f32_iters}")
+    check(fused["launches"]["taa_round"] == iters,
+          f"phase 9 (a): K3 launches {fused['launches']} != {iters}")
+    return dict(iters=iters, dit_ms=dit, rest_ms=rest, wall_s=fused["wall_s"],
+                seq_wall_s=out["seq"]["wall_s"], x0_err=errs,
+                x0_err_f32=errs32, launches=fused["launches"])
+
+
+def use_pallas_path(params):
+    """Phase 9 (b): ``serve.main --use-pallas off`` against ``auto`` at its
+    own geometry, fused and staged, in turns (off, auto, auto, off), with
+    phase 3's DiT-XL weights (``serve.dit_init`` returns them: its own
+    adaLN-zero init gives eps = 0)."""
+    import numpy as np
+
+    from repro_torch.kernels import taa_update
+    from repro_torch.launch import serve
+
+    real_init = serve.dit_init
+    serve.dit_init = lambda cfg, seed, device: params
+    out = {}
+    try:
+        for mode, flags in (("fused", ["--fuse-round"]), ("staged", [])):
+            for value in ("off", "auto", "auto", "off"):
+                taa_update.reset_launches()
+                t0 = time.monotonic()
+                x0, stats = serve.main(USE_PALLAS_FLAGS + flags +
+                                       ["--use-pallas", value])
+                wall = time.monotonic() - t0
+                out.setdefault((mode, value), []).append(dict(
+                    x0=x0, iters=[s["iters"] for s in stats],
+                    nfe=[s["nfe"] for s in stats], wall_s=wall,
+                    launches=dict(taa_update.launches)))
+    finally:
+        serve.dit_init = real_init
+    summary = {}
+    for mode in ("fused", "staged"):
+        off, auto = out[(mode, "off")], out[(mode, "auto")]
+        iters = max(off[0]["iters"])
+        err = max(float(np.max(np.abs(a["x0"] - o["x0"]))
+                        / np.max(np.abs(o["x0"]))) for a in auto for o in off)
+        w_off = [r["wall_s"] for r in off]
+        w_auto = [r["wall_s"] for r in auto]
+        print(f"phase 9 (b) {mode}: iters off {off[0]['iters']} / auto "
+              f"{auto[0]['iters']}, nfe off {off[0]['nfe']} / auto "
+              f"{auto[0]['nfe']}; serve.main walls (s, in turns off, auto, "
+              f"auto, off) {w_off[0]}, {w_auto[0]}, {w_auto[1]}, {w_off[1]}; "
+              f"(off - auto) per iteration "
+              f"{(sum(w_off) - sum(w_auto)) / 2 / iters * 1e3} ms; x0 off vs "
+              f"auto rel err {err} (bound 1e-4); launches off "
+              f"{off[0]['launches']}, auto {auto[0]['launches']}")
+        for a, o in zip(auto, off):
+            check(a["iters"] == o["iters"] and a["nfe"] == o["nfe"],
+                  f"phase 9 (b) {mode}: iters/nfe differ")
+            check(not any(o["launches"].values()),
+                  f"phase 9 (b) {mode} off launched {o['launches']}")
+            want = {"taa_gram": 0, "taa_apply": 0, "taa_round": iters} \
+                if mode == "fused" else \
+                {"taa_gram": iters, "taa_apply": iters, "taa_round": 0}
+            check(a["launches"] == want,
+                  f"phase 9 (b) {mode} auto launches {a['launches']} != "
+                  f"{want}")
+        check(err < 1e-4, f"phase 9 (b) {mode}: x0 off vs auto {err}")
+        summary[mode] = dict(iters=iters, wall_off_s=w_off,
+                             wall_auto_s=w_auto, x0_err=err,
+                             launches=auto[0]["launches"])
+    return summary
+
+
+def dryrun_against_card():
+    """Phase 9 (c): the dry-run's cost and memory of the prefills of phases
+    7 and 8 (bf16) on ``meta``, then the same prefill on the card under the
+    same counter: FLOPs equal, the peak within 25% of
+    ``torch.cuda.max_memory_allocated()``; the roofline bound beside the
+    measured prefill."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import backbone
+    from repro_torch.models.pdefs import init_on_device
+    from repro_torch.roofline.counter import CostCounter
+
+    cuda = torch.device("cuda")
+    out = {}
+    for arch, batch, prompt in DRYRUN_CELLS:
+        cfg = get_arch(arch)
+        shape = ShapeConfig(f"prefill_{prompt}", prompt, batch, "prefill")
+        t0 = time.monotonic()
+        rec = dryrun.run_cell(arch, shape)
+        meta_s = time.monotonic() - t0
+        free_card()
+        base = torch.cuda.memory_allocated()
+        params = init_on_device(backbone.build_defs(cfg), SEED, cuda,
+                                dtype=steps.PARAM_DTYPE)
+        cache = steps.abstract_cache(cfg, shape, device=cuda)
+        rng = np.random.default_rng(SEED)
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (batch, prompt)).astype(np.int32)).to(cuda)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad(), CostCounter() as counter:
+            counter.track(params, cache, tokens)
+            backbone.prefill(params, cfg, tokens, cache)
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        with torch.no_grad():
+            timed = TimedCalls(lambda: backbone.prefill(params, cfg, tokens,
+                                                        cache))
+            for _ in range(3):
+                timed()
+        ms = statistics.median(timed.ms()[1:])
+        bound_ms = rec["step_time_lb_s"] * 1e3
+        share = abs(rec["peak_bytes"] / peak - 1)
+        print(f"phase 9 (c) {arch} bf16 prefill {batch} x {prompt}: dry-run "
+              f"on meta ({meta_s} s) {rec['flops_per_chip']} flop "
+              f"{rec['flops_by_dtype']}, {rec['bytes_per_chip']} B, peak "
+              f"{rec['peak_bytes']} B; on the card the counter's "
+              f"{counter.flops} flop, {counter.bytes} B, peak {counter.peak} "
+              f"B; torch.cuda.max_memory_allocated {peak} B (above the "
+              f"{base} B allocated before), the dry-run's peak off it by "
+              f"{share} (bound 0.25); roofline bound {bound_ms} ms "
+              f"({rec['dominant']}-bound: compute {rec['compute_s'] * 1e3} "
+              f"ms, memory {rec['memory_s'] * 1e3} ms) against the measured "
+              f"prefill {ms} ms (median of 2, CUDA events): share "
+              f"{bound_ms / ms}")
+        check(counter.flops == rec["flops_per_chip"],
+              f"phase 9 (c) {arch}: card {counter.flops} flop != meta "
+              f"{rec['flops_per_chip']}")
+        check(share < 0.25, f"phase 9 (c) {arch}: peak {rec['peak_bytes']} "
+              f"vs the card's {peak}")
+        out[arch] = dict(rec=rec, card_flops=counter.flops,
+                         card_bytes=counter.bytes,
+                         card_counter_peak=counter.peak, card_peak=peak,
+                         prefill_ms=ms, bound_ms=bound_ms)
+        del params, cache, tokens, timed
+    free_card()
+    return out
+
+
+def examples_on_card():
+    """Phase 9 (d): the three torch examples at their defaults on cuda."""
+    import importlib.util
+
+    out = {}
+    for name in ("torch_train_and_serve", "torch_trajectory_variation",
+                 "torch_quickstart"):
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        t0 = time.monotonic()
+        mod.main([])
+        out[name] = time.monotonic() - t0
+        print(f"phase 9 (d) {name}: ran at its defaults on cuda in "
+              f"{out[name]} s, its checks held")
+        free_card()
     return out
 
 
@@ -2149,6 +2561,7 @@ def main() -> int:
     t2 = time.monotonic()
     runs, params, cfg = main_path()
     check_main_path(runs)
+    tf32 = tf32_path(params, cfg, runs)
     t3 = time.monotonic()
     cases = model_cases()
     print(f"phase 4 inputs made in {time.monotonic() - t3} s")
@@ -2161,6 +2574,8 @@ def main() -> int:
     served = serving_path(params, cfg, cuda)
     serving = check_serving(served, params, cfg, cuda)
     t5 = time.monotonic()
+    pallas = use_pallas_path(params)
+    t5b = time.monotonic()
 
     launches = {"taa_gram": runs["taa staged"]["launches"]["taa_gram"],
                 "taa_apply": runs["taa staged"]["launches"]["taa_apply"],
@@ -2182,7 +2597,11 @@ def main() -> int:
             library_ms=t["library_ms"], device_ms=t["device_ms"],
             plain_device_ms=t["plain_device_ms"],
             library_device_ms=t["library_device_ms"],
-            **({"stepwise_launches": serving["taa_round_launches"]}
+            use_pallas_auto_launches={
+                mode: pallas[mode]["launches"][name]
+                for mode in ("fused", "staged")},
+            **({"stepwise_launches": serving["taa_round_launches"],
+                "tf32_launches": tf32["launches"]["taa_round"]}
                if name == "taa_round" else {})))
     keys = ("label", "path", "ms", "device_ms", "plain_ms", "plain_device_ms",
             "library_ms", "library_device_ms", "bound_ms", "bound_by",
@@ -2230,11 +2649,17 @@ def main() -> int:
         run = ssm["wrap"]["fused" if name == "taa_round" else "staged"]
         next(r for r in rows if r["name"] == name)[
             "ssm_wrapper_launches"] = run["launches"][name]
+    t8 = time.monotonic()
+    free_card()
+    dryrun_against_card()
+    t9 = time.monotonic()
+    examples_on_card()
     print(f"phase seconds: build {t1 - t0}, taa kernels {t2 - t1}, DiT-XL "
-          f"serving {t3 - t2}, model kernels {t4 - t3}, DiT-XL stepwise "
-          f"serving {t5 - t4}, DiT-XL train-checkpoint-serve {t6 - t5}, "
-          f"qwen3-0.6b wrapper/LM {t7 - t6}, mamba2/recurrentgemma/MoE "
-          f"{time.monotonic() - t7}")
+          f"serving and TF32 {t3 - t2}, model kernels {t4 - t3}, DiT-XL "
+          f"stepwise serving {t5 - t4}, --use-pallas {t5b - t5}, DiT-XL "
+          f"train-checkpoint-serve {t6 - t5b}, qwen3-0.6b wrapper/LM "
+          f"{t7 - t6}, mamba2/recurrentgemma/MoE {t8 - t7}, dry-run against "
+          f"the card {t9 - t8}, examples {time.monotonic() - t9}")
     # the card again, so that the end of a long log still names it
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": rows}))

@@ -18,6 +18,8 @@ Every tensor carries a leading lane axis.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -26,6 +28,7 @@ from repro_torch.kernels import ops as _ops
 
 def anderson_update(x_rows, R, dX, dF, window_mask, *, mode: str,
                     lam: float, safeguard_mask=None,
+                    use_pallas: Optional[bool] = None,
                     fuse_round: bool = False):
     """One accelerated update over the active window.
 
@@ -35,6 +38,9 @@ def anderson_update(x_rows, R, dX, dF, window_mask, *, mode: str,
     window_mask: (B, T) bool — active rows [t1, t2]
     safeguard_mask: (B, T) bool — rows whose *suffix* residuals have all
         converged; Theorem 3.6 forces those rows to the plain FP update.
+    use_pallas: kernel routing of the round (``kernels.ops``): None
+        chooses by the device, True the kernels, False the plain
+        versions on any device.
     fuse_round: the whole round as one ``ops.taa_round`` dispatch (one
         kernel launch on the card) instead of the staged Gram -> solve ->
         apply; on the CPU both are the same staged composition.
@@ -45,7 +51,7 @@ def anderson_update(x_rows, R, dX, dF, window_mask, *, mode: str,
     wmask = window_mask.to(torch.float32)
     round_fn = _ops.taa_round if fuse_round else _ops.taa_round_staged
     return round_fn(x_rows, R, dX, dF, wmask, mode=mode, lam=lam,
-                    safeguard_mask=safeguard_mask)
+                    safeguard_mask=safeguard_mask, use_pallas=use_pallas)
 
 
 # ---------------------------------------------------------------------------

@@ -42,6 +42,10 @@ class ParaTAAConfig:
     s_max: int = 100           # max iterations
     safeguard: bool = True     # Theorem 3.6 post-processing
     t_init: int = 0            # 0 => fresh start (T_init = T)
+    use_pallas: Optional[bool] = None  # kernels.ops routing of the TAA
+                               # round (None = by device: the kernels on
+                               # the card, the plain versions on the CPU;
+                               # False = the plain versions on any device)
     fuse_round: bool = False   # the Anderson round as ONE ops.taa_round
                                # dispatch (one kernel launch on the card)
 
@@ -195,7 +199,7 @@ def _iterate(state: SolverState, static, cfg: ParaTAAConfig,
     x_rows_new = anderson_update(
         x[:, :T], R.to(x.dtype), state.dX, dF, upd_mask,
         mode=mode, lam=cfg.lam, safeguard_mask=guard,
-        fuse_round=cfg.fuse_round)
+        use_pallas=cfg.use_pallas, fuse_round=cfg.fuse_round)
     x_new = torch.cat([x_rows_new, x[:, T:]], dim=1)
 
     # write dX[i % m] = x^{i+1} - x^i after it

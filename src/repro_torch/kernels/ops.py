@@ -7,8 +7,12 @@ taa_update`, :mod:`~repro_torch.kernels.flash_attention`,
 ssd_scan`, :mod:`~repro_torch.kernels.rglru_scan`), and a kernel that cannot
 launch raises — there is no fallback.  The model-kernel entry points keep
 the JAX package's signatures (``repro/kernels/ops.py``) without its
-``use_pallas``/``interpret`` knobs; the TAA functions take an optional
-leading lane axis.
+``interpret`` knob; the TAA functions take an optional leading lane axis
+and the reference's ``use_pallas``: None (the default) chooses by the
+device as above, True takes the kernel (a CPU tensor raises), False the
+plain version on any device — an explicit request, never a fallback.
+A ``meta`` tensor (shapes only, for the dry-run's cost counter) takes the
+plain version; any other device raises.
 
 The m x m solves of the staged round stay a PyTorch call, as the JAX
 package leaves them to XLA outside its kernels: ``torch.linalg.solve_ex``
@@ -18,6 +22,8 @@ staged round queues its work without a sync.  The fused round solves
 in-kernel by pivot-free Gauss-Jordan.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -32,9 +38,15 @@ from repro_torch.kernels import taa_update as _k
 def _on_card(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"no kernel or plain path for device {t.device}")
+
+
+def _use_kernel(t: torch.Tensor, use_pallas: Optional[bool]) -> bool:
+    """The TAA functions' routing: by the device when ``use_pallas`` is
+    None, else as asked (the kernel wrapper refuses a CPU tensor)."""
+    return _on_card(t) if use_pallas is None else bool(use_pallas)
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -81,39 +93,43 @@ def _eye(m: int, like: torch.Tensor) -> torch.Tensor:
     return torch.eye(m, dtype=torch.float32, device=like.device)
 
 
-def taa_gram(dF, R, mask):
+def taa_gram(dF, R, mask, *, use_pallas: Optional[bool] = None):
     """Per-row Gram blocks G_t = F_t^T F_t, u_t = F_t^T R_t (masked) — the
     memory-bound first pass every Anderson variant shares."""
-    if _on_card(dF):
+    if _use_kernel(dF, use_pallas):
         return _k.taa_gram(dF, R, mask)
     return _ref.taa_gram_ref(dF, R, mask)
 
 
-def taa_rowwise_gamma(dF, R, mask, *, lam: float = 1e-8):
+def taa_rowwise_gamma(dF, R, mask, *, lam: float = 1e-8,
+                      use_pallas: Optional[bool] = None):
     """Per-row TAA gammas via suffix-cumsum Grams (Theorem 3.2)."""
-    G, u = taa_gram(dF, R, mask)
+    G, u = taa_gram(dF, R, mask, use_pallas=use_pallas)
     m = dF.shape[-3]
     Gs = _suffix_sum(G, -3) + lam * _eye(m, G)
     us = _suffix_sum(u, -2)
     return _solve(Gs, us[..., None])[..., 0]
 
 
-def taa_apply(x, R, dX, dF, gamma, mask):
+def taa_apply(x, R, dX, dF, gamma, mask, *,
+              use_pallas: Optional[bool] = None):
     """Per-row history apply x_t + R_t - (dX_t + dF_t)^T gamma_t."""
-    if _on_card(x):
+    if _use_kernel(x, use_pallas):
         return _k.taa_apply(x, R, dX, dF, gamma, mask)
     return _ref.taa_apply_ref(x, R, dX, dF, gamma, mask)
 
 
 def taa_round_staged(x, R, dX, dF, mask, *, mode: str = "taa",
-                     lam: float = 1e-8, safeguard_mask=None):
+                     lam: float = 1e-8, safeguard_mask=None,
+                     use_pallas: Optional[bool] = None):
     """The round as three stages — Gram pass, (suffix) reduce + solve,
     apply pass — for taa and the aa/aa+ global reductions."""
     T, m = x.shape[-2], dF.shape[-3]
     if mode == "taa":
-        gamma = taa_rowwise_gamma(dF, R, mask, lam=lam)
+        gamma = taa_rowwise_gamma(dF, R, mask, lam=lam,
+                                  use_pallas=use_pallas)
     else:
-        G, u = taa_gram(dF, R, mask)
+        G, u = taa_gram(dF, R, mask, use_pallas=use_pallas)
         M = G.sum(-3) + lam * _eye(m, G)                       # (..., m, m)
         if mode == "aa":
             g = _solve(M, u.sum(-2)[..., None])[..., 0]
@@ -125,18 +141,20 @@ def taa_round_staged(x, R, dX, dF, mask, *, mode: str = "taa",
             raise ValueError(mode)
     if safeguard_mask is not None:
         gamma = torch.where(safeguard_mask[..., None], 0.0, gamma)
-    return taa_apply(x, R, dX, dF, gamma, mask)
+    return taa_apply(x, R, dX, dF, gamma, mask, use_pallas=use_pallas)
 
 
 def taa_round(x, R, dX, dF, mask, *, mode: str = "taa", lam: float = 1e-8,
-              safeguard_mask=None):
+              safeguard_mask=None, use_pallas: Optional[bool] = None):
     """The whole Theorem-3.2 round as ONE dispatch.  On the card that is one
-    ``taa_round`` kernel launch; on the CPU it is the staged composition
+    ``taa_round`` kernel launch; on the CPU (or with ``use_pallas=False``)
+    it is the staged composition of the plain versions
     (:func:`taa_round_staged`), so fused equals staged bit for bit there.
     ``safeguard_mask``: (..., T) bool rows forced to the plain FP update."""
-    if _on_card(x):
+    if _use_kernel(x, use_pallas):
         guard = torch.zeros_like(mask, dtype=torch.float32) \
             if safeguard_mask is None else safeguard_mask.to(torch.float32)
         return _k.taa_round(x, R, dX, dF, mask, guard, mode=mode, lam=lam)
     return taa_round_staged(x, R, dX, dF, mask, mode=mode, lam=lam,
-                            safeguard_mask=safeguard_mask)
+                            safeguard_mask=safeguard_mask,
+                            use_pallas=use_pallas)

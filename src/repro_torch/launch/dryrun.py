@@ -1,0 +1,454 @@
+"""One-card dry-run: the cost and the peak memory of every (architecture x
+input shape) cell on one H100, counted on ``meta`` tensors (shapes only,
+nothing computed, no card needed) — the JAX package's
+``repro.launch.dryrun`` without its production meshes (``chips`` 1,
+``mesh`` "single").
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out build/dryrun
+    PYTHONPATH=src python -m repro_torch.roofline.report build/dryrun
+
+Each cell runs its step as the drivers run it (``launch.steps``: train =
+``grad_accum`` microbatches + AdamW; prefill; one decode step), with the
+reference's ``PARAM_DTYPE`` (bf16; the SSM decays, ``lam`` and the MoE
+router float32), under :class:`repro_torch.roofline.counter.CostCounter`:
+
+* **memory**: the program's peak of live storage (arguments +
+  temporaries; the reference's ``memory_analysis()`` of its rolled
+  program) against the card's 80 GB -> ``fits_hbm``; a train step's over
+  two of its microbatches (its float32 grad sums live from the second
+  on, and the rest repeat it), then its AdamW update;
+* **cost**: as the reference assembles it (its XLA counts a loop body at
+  zero), from one scan unit (a layer, a hybrid's period group) counted
+  standalone at the cell's (micro)batch:
+  serve ``const + n_units x unit``; train ``opt + acc + ga x (loss +
+  n_units x unit)``, where const and loss are the program (the loss and
+  its grads, at one microbatch) at a depth of one unit less that unit,
+  opt is the AdamW update and acc the float32 grad accumulation over the
+  whole tree.  Eager PyTorch runs every layer and every KV block, so the
+  sum is the program's own count (``runconfig.set_unroll_scans`` has no
+  reader here): the FLOPs exactly, the bytes but for the backward of the
+  layers' ``unbind`` (it stacks their grads) and, for MoE, the aux
+  loss's adds between layers (tests/test_torch_dryrun.py).
+
+The DiT cells count the whole program (a Python loop of blocks in both
+packages).  The ParaTAA cell costs one solver iteration of DiT-XL at the
+reference's geometry.  Bytes are the eager program's, op by op (the
+reference's are XLA's after fusion).  The roofline's compute term takes
+bf16 products at 989 TFLOP/s and float32 ones at 67 (``compute_s``) or,
+with TF32 on, 495 (``compute_s_tf32``); there is no collective on one
+card.  The reference's ``lower_s``/``compile_s`` are null (nothing is
+compiled); ``count_s`` is the seconds of the counted runs.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+import traceback
+from pathlib import Path
+from typing import Union
+
+import torch
+
+from repro_torch.configs.base import SHAPES, ShapeConfig
+from repro_torch.configs.registry import ASSIGNED, get_arch, get_shape
+from repro_torch.launch import steps as S
+from repro_torch.models import backbone as B
+from repro_torch.optim import AdamWConfig, adamw_update, lr_schedule
+from repro_torch.roofline import analysis as RA
+from repro_torch.roofline.counter import CostCounter
+from repro_torch.tree import leaves
+
+META = S.META
+
+
+@dataclasses.dataclass
+class Cost:
+    """FLOPs (split by operand dtype) and bytes, added and scaled."""
+    flops_by_dtype: dict
+    bytes: float
+
+    @classmethod
+    def of(cls, counter: CostCounter) -> "Cost":
+        return cls(dict(counter.flops_by_dtype), float(counter.bytes))
+
+    @property
+    def flops(self) -> float:
+        return float(sum(self.flops_by_dtype.values()))
+
+    def __add__(self, other: "Cost") -> "Cost":
+        keys = set(self.flops_by_dtype) | set(other.flops_by_dtype)
+        return Cost({k: self.flops_by_dtype.get(k, 0)
+                     + other.flops_by_dtype.get(k, 0) for k in keys},
+                    self.bytes + other.bytes)
+
+    def __sub__(self, other: "Cost") -> "Cost":
+        return self + other * -1
+
+    def __mul__(self, n: float) -> "Cost":
+        return Cost({k: v * n for k, v in self.flops_by_dtype.items()},
+                    self.bytes * n)
+
+
+def _counted(fn, *args, **kw) -> Cost:
+    """The cost of ``fn(*args, **kw)`` (its output dropped)."""
+    with CostCounter() as counter:
+        fn(*args, **kw)
+    return Cost.of(counter)
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def _requires_grad(tree, flag: bool):
+    for p in leaves(tree):
+        if p.is_floating_point():
+            p.requires_grad_(flag)
+    return [p for p in leaves(tree) if p.is_floating_point()]
+
+
+# ---------------------------------------------------------------------------
+# The programs
+# ---------------------------------------------------------------------------
+
+
+def _program(cfg, shape: ShapeConfig, device=META, microbatches=None):
+    """(step fn, its arguments) of the cell, as the drivers run it; a train
+    step over ``microbatches`` of its microbatches (default: all)."""
+    kind = shape.kind
+    params, opt = S.abstract_model_state(cfg, with_opt=kind == "train",
+                                         device=device)
+    ga = cfg.train_grad_accum
+    if kind == "train" and microbatches and microbatches < ga:
+        shape = dataclasses.replace(
+            shape, global_batch=shape.global_batch // ga * microbatches)
+        cfg = dataclasses.replace(cfg, train_grad_accum=microbatches)
+    inputs = S.input_specs(cfg, shape, device)
+    if kind == "train":
+        fn = S.make_train_step(cfg, grad_accum=cfg.train_grad_accum)
+        step = torch.zeros((), dtype=torch.int32, device=device)
+        return fn, (params, opt, inputs, step)
+    cache = S.abstract_cache(cfg, shape, device)
+    if kind == "prefill":
+        return S.make_prefill_step(cfg), (params, inputs["inputs"], cache)
+    return S.make_decode_step(cfg), (params, inputs["token"], cache)
+
+
+def _memory(fn, args) -> dict:
+    """The program's live-storage peak on ``meta``: arguments (what is
+    live before it runs) + temporaries."""
+    with CostCounter() as counter:
+        arg_bytes = counter.track(args)
+        out = fn(*args)
+        held = counter.live
+        new = counter.track(out)     # outputs made outside the counted ops
+    peak = counter.peak
+    del out
+    return dict(argument_bytes=arg_bytes, output_bytes=held + new - arg_bytes,
+                temp_bytes=peak - arg_bytes, peak_bytes=peak)
+
+
+def _scan_unit(cfg):
+    """(kinds of a scan unit, n_units, the unit's apply, the config at a
+    depth of one unit): a layer, or a hybrid's period group (its tail
+    stays in the rest of the program)."""
+    if cfg.is_hybrid:
+        kinds, n_units, _ = B.hybrid_layout(cfg)
+    else:
+        kinds, n_units = cfg.layer_kinds()[:1], cfg.num_layers
+    one = dataclasses.replace(
+        cfg, num_layers=cfg.num_layers - (n_units - 1) * len(kinds))
+
+    def unit_apply(lp, h, pos, cache, mode):
+        if cfg.is_hybrid:
+            return B._apply_group(cfg, kinds, lp, h, pos, mode=mode,
+                                  cache=cache, causal=True)
+        return B._apply_layer(cfg, kinds[0], lp, h, pos, mode=mode,
+                              cache=cache, causal=True)
+    return kinds, n_units, unit_apply, one
+
+
+def _layer_cost(cfg, shape: ShapeConfig, device=META):
+    """One scan unit standalone, at the (micro)batch of the cell: for train
+    shapes its loss sum(out) and the grads of its params and input, the
+    unit recomputed in the backward pass (the trunk's remat); for prefill
+    and decode, the unit over its own cache.  Returns (Cost, n_units)."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.models.pdefs import leaf_dtype, map_defs
+
+    kinds, n_units, unit_apply, _ = _scan_unit(cfg)
+    if cfg.is_hybrid:
+        defs = {f"l{j}": B._layer_def(cfg, k) for j, k in enumerate(kinds)}
+    else:
+        defs = B._layer_def(cfg, kinds[0])
+    lp = map_defs(lambda _, spec: torch.empty(
+        spec.shape, dtype=leaf_dtype(spec, S.PARAM_DTYPE), device=device),
+        defs)
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        b //= cfg.train_grad_accum
+    s_eff = 1 if shape.kind == "decode" else s
+    h = torch.zeros((b, s_eff, cfg.d_model), dtype=S.PARAM_DTYPE,
+                    device=device)
+    pos = B.default_positions(cfg, b, s_eff, device)
+    if shape.kind == "train":
+        flat = _requires_grad(lp, True) + [h.requires_grad_(True)]
+
+        def run():
+            out, _ = checkpoint(unit_apply, lp, h, pos, None, "train",
+                                use_reentrant=False)
+            return torch.autograd.grad(out.float().sum(), flat,
+                                       allow_unused=True,
+                                       materialize_grads=True)
+        try:
+            return _counted(run), n_units
+        finally:
+            _requires_grad(lp, False)
+
+    def layer_cache(kind):
+        return B._layer_cache(cfg, kind, b, s, S.PARAM_DTYPE, device)
+    cache = {f"l{j}": layer_cache(k) for j, k in enumerate(kinds)} \
+        if cfg.is_hybrid else layer_cache(kinds[0])
+    with torch.no_grad():
+        return _counted(unit_apply, lp, h, pos, cache, shape.kind), n_units
+
+
+def _loss_cost(cfg, shape: ShapeConfig, device=META) -> Cost:
+    """The loss and the grads of every param at one microbatch — as the
+    train step takes them — for ``cfg`` as given."""
+    ga = cfg.train_grad_accum
+    mb = dataclasses.replace(shape, global_batch=shape.global_batch // ga)
+    params, _ = S.abstract_model_state(cfg, with_opt=False, device=device)
+    batch = S.input_specs(cfg, mb, device)
+    loss_fn = S.make_loss_fn(cfg)
+    flat = _requires_grad(params, True)
+    try:
+        return _counted(lambda: torch.autograd.grad(
+            loss_fn(params, batch), flat, allow_unused=True,
+            materialize_grads=True))
+    finally:
+        _requires_grad(params, False)
+
+
+def _update_cost(cfg, device=META):
+    """(AdamW update, float32 grad accumulation over the microbatches),
+    each over the whole param tree."""
+    params, opt = S.abstract_model_state(cfg, device=device)
+    grads = [torch.empty(p.shape, dtype=p.dtype, device=device)
+             for p in leaves(params)]
+    f32 = [g.float() for g in grads]
+    step = torch.zeros((), dtype=torch.int32, device=device)
+    ocfg = AdamWConfig()
+    opt_cost = _counted(lambda: adamw_update(
+        f32, opt, params, ocfg, lr_schedule(step, base_lr=ocfg.lr,
+                                            total_steps=10_000)))
+    ga = cfg.train_grad_accum
+
+    def accumulate():
+        sums = S.accumulate_grads(None, grads)
+        for _ in range(ga - 1):
+            S.accumulate_grads(sums, grads)
+        if ga > 1:
+            for acc in sums:
+                acc.mul_(1.0 / ga)
+    return opt_cost, _counted(accumulate)
+
+
+def cell_cost(cfg, shape: ShapeConfig, device=META):
+    """(Cost, n_units): the cell's cost assembled from a standalone scan
+    unit (module docstring); the DiT's counted whole."""
+    if cfg.is_diffusion:
+        fn, args = _program(cfg, shape, device)
+        return _counted(fn, *args), 0
+    unit, n_units = _layer_cost(cfg, shape, device)
+    _, _, _, one = _scan_unit(cfg)
+    if shape.kind == "train":
+        loss = _loss_cost(one, shape, device) - unit
+        opt, acc = _update_cost(cfg, device)
+        ga = cfg.train_grad_accum
+        return opt + acc + (loss + unit * n_units) * ga, n_units
+    fn, args = _program(one, shape, device)
+    with torch.no_grad():
+        const = _counted(fn, *args) - unit
+    return const + unit * n_units, n_units
+
+
+def _roofline(cost: Cost) -> dict:
+    terms = RA.roofline_terms(cost.flops, cost.bytes, 0.0,
+                              flops_by_dtype=cost.flops_by_dtype)
+    tf32 = RA.roofline_terms(cost.flops, cost.bytes, 0.0,
+                             flops_by_dtype=cost.flops_by_dtype, tf32=True)
+    return dict(flops_per_chip=cost.flops, bytes_per_chip=cost.bytes,
+                flops_by_dtype=cost.flops_by_dtype,
+                collective_bytes_per_chip=0.0, collective_breakdown={},
+                compute_s=terms.compute_s, compute_s_tf32=tf32.compute_s,
+                memory_s=terms.memory_s, collective_s=terms.collective_s,
+                dominant=terms.dominant, step_time_lb_s=terms.step_time_lb)
+
+
+def run_cell(arch_name: str, shape: Union[str, ShapeConfig], *,
+             cfg=None, verbose: bool = True) -> dict:
+    """One (arch, shape) cell on ``meta``.  ``shape`` is a name of
+    ``configs.base.SHAPES`` or a ``ShapeConfig``; ``cfg`` overrides the
+    registry's config (a reduced one in the tests)."""
+    cfg = cfg or get_arch(arch_name)
+    shape = get_shape(shape) if isinstance(shape, str) else shape
+    rec = {"arch": arch_name, "shape": shape.name, "mesh": "single"}
+    ok, reason = cfg.supports_shape(shape)
+    if not ok:
+        return {**rec, "status": "skipped", "reason": reason}
+    rec.update(chips=1, status="error")
+    t0 = time.monotonic()
+    # the peak of a train step is reached by its second microbatch (the
+    # float32 grad sums live from then on): two stand for all of them,
+    # with the whole batch's bytes among the arguments
+    fn, args = _program(cfg, shape, microbatches=2)
+    grad = torch.enable_grad() if shape.kind == "train" else torch.no_grad()
+    with grad:
+        mem = _memory(fn, args)
+    if shape.kind == "train":
+        extra = _nbytes(S.input_specs(cfg, shape)) - _nbytes(args[2])
+        for key in ("argument_bytes", "peak_bytes"):
+            mem[key] += extra
+    del fn, args
+    cost, n_units = cell_cost(cfg, shape)
+    mf = RA.model_flops(cfg, shape)
+    rec.update(
+        status="ok", lower_s=None, compile_s=None,
+        count_s=time.monotonic() - t0, n_units=n_units, **mem,
+        fits_hbm=bool(mem["peak_bytes"] < RA.HBM_PER_CHIP), **_roofline(cost),
+        model_flops_global=mf,
+        model_flops_ratio=mf / cost.flops if cost.flops else None)
+    if verbose:
+        _print(rec)
+    return rec
+
+
+def _print(rec: dict) -> None:
+    print(f"[single] {rec['arch']} x {rec['shape']}: counted in "
+          f"{rec['count_s']:.1f}s, compute {rec['compute_s'] * 1e3:.2f}ms "
+          f"(TF32 {rec['compute_s_tf32'] * 1e3:.2f}ms) / mem "
+          f"{rec['memory_s'] * 1e3:.2f}ms / coll 0 -> {rec['dominant']}-"
+          f"bound; peak {rec['peak_bytes'] / 1e9:.2f} GB (fits="
+          f"{rec['fits_hbm']}) mf-ratio="
+          f"{rec['model_flops_ratio'] and round(rec['model_flops_ratio'], 3)}")
+
+
+def run_parataa_cell(*, T: int = 100, window: int = 64, n_samples: int = 16,
+                     history_m: int = 3, reduced: bool = False,
+                     verbose: bool = True) -> dict:
+    """The paper's workload as a cell: ParaTAA sampling of DiT-XL, 16
+    requests of 256 latent tokens, T=100, window 64, history 3, order 8
+    (the reference's geometry), in float32 as the port serves it (the
+    reference's bf16 params meet float32 latents and compute in float32).
+
+    Memory: the solver state (the engine's lanes) and the params, through
+    one guarded iteration — every iteration of the loop is that program.
+    Cost: one guarded solver iteration (the window's 16 x 64 DiT
+    forwards, the residuals, the TAA round and the per-lane selects;
+    the round on ``meta`` is its plain version): x the iteration count
+    for a request's cost.  ``reduced``: the reduced DiT at 32 tokens."""
+    from repro_torch.core import ddim_coeffs
+    from repro_torch.core import parataa
+    from repro_torch.diffusion import dit as dit_mod
+    from repro_torch.sampling import get_sampler
+
+    cfg = get_arch("dit-xl")
+    if reduced:
+        cfg = cfg.reduced()
+    n_tok = 32 if reduced else 256
+    rec = {"arch": "dit-xl", "shape": "parataa_serve", "mesh": "single",
+           "chips": 1, "status": "error", "T": T, "window": window,
+           "n_samples": n_samples, "placement": "one device"}
+    t0 = time.monotonic()
+    coeffs = ddim_coeffs(T)
+    spec = get_sampler("taa", order_k=8, history_m=history_m, window=window,
+                       s_max=2 * T)
+    solver = spec.solver_config(T)
+    params, _ = S.abstract_model_state(cfg, with_opt=False,
+                                       dtype=torch.float32)
+    labels = torch.zeros((n_samples,), dtype=torch.long, device=META)
+    xi = torch.empty((n_samples, T + 1, n_tok, cfg.latent_dim),
+                     dtype=torch.float32, device=META)
+
+    def eps_fn(xw, taus):
+        y = labels.repeat_interleave(xw.shape[0] // n_samples)
+        return dit_mod.dit_apply(params, cfg, xw, taus, y)
+
+    state = parataa.init_state(coeffs, solver, xi)
+    static = parataa._build_static(coeffs, solver, META)
+    eps_flat = parataa._flat_eps(eps_fn, (n_tok, cfg.latent_dim))
+    with torch.no_grad(), CostCounter() as counter:
+        arg_bytes = counter.track(params, state, labels)
+        nxt = parataa._guarded_step(state, static, solver, eps_flat)
+        del nxt
+    cost = Cost.of(counter)
+    peak = counter.peak
+    mf = 2.0 * cfg.param_count() * n_samples * window * n_tok
+    rec.update(
+        status="ok", compile_s=None, count_s=time.monotonic() - t0,
+        argument_bytes=arg_bytes, temp_bytes=peak - arg_bytes,
+        peak_bytes=peak, fits_hbm=bool(peak < RA.HBM_PER_CHIP),
+        **_roofline(cost), model_flops_global=mf,
+        model_flops_ratio=mf / cost.flops if cost.flops else None,
+        note="per-ITERATION cost; end-to-end = iters x this")
+    if verbose:
+        _print(rec)
+    return rec
+
+
+def _error(arch, shape, e) -> dict:
+    traceback.print_exc()
+    return {"arch": arch, "shape": shape, "mesh": "single", "status": "error",
+            "error": repr(e)}
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--arch", default=None)
+    p.add_argument("--shape", default=None)
+    p.add_argument("--all", action="store_true",
+                   help="every assigned cell, dit-xl x train_4k and the "
+                        "ParaTAA cell")
+    p.add_argument("--parataa", action="store_true",
+                   help="only the ParaTAA batched-sampling cell")
+    p.add_argument("--out", default="build/dryrun")
+    args = p.parse_args(argv)
+
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    if args.all:
+        cells = [(a, s) for a in ASSIGNED for s in SHAPES] + \
+            [("dit-xl", "train_4k")]
+    elif args.parataa:
+        cells = []
+    else:
+        if not (args.arch and args.shape):
+            raise SystemExit("--arch/--shape, --parataa or --all")
+        cells = [(args.arch, args.shape)]
+    failures = 0
+    for arch_name, shape_name in cells:
+        path = out / f"{arch_name}__{shape_name}__single.json"
+        try:
+            rec = run_cell(arch_name, shape_name)
+        except Exception as e:  # noqa: BLE001 — the cell's record says why
+            rec = _error(arch_name, shape_name, e)
+            failures += 1
+        path.write_text(json.dumps(rec, indent=1, default=str))
+    if args.all or args.parataa:
+        try:
+            rec = run_parataa_cell()
+        except Exception as e:  # noqa: BLE001
+            rec = _error("dit-xl", "parataa_serve", e)
+            failures += 1
+        (out / "dit-xl__parataa_serve__single.json").write_text(
+            json.dumps(rec, indent=1, default=str))
+    if failures:
+        raise SystemExit(f"{failures} cell(s) failed")
+
+
+if __name__ == "__main__":
+    main()

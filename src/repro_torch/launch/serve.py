@@ -13,6 +13,12 @@ requests per dispatch; sequential DDIM/DDPM is the same engine with the
 ``repro_torch.launch.train --ckpt-dir DIR`` or by the JAX package's
 driver) instead of random weights, on either path.
 
+``--use-pallas {auto,on,off}`` routes the solver's TAA round: by the
+device (auto), through the hand-written kernels (on; a CPU tensor
+raises), or through their plain PyTorch versions on any device (off).
+``--backend-tune`` turns TF32 on for float32 matmuls and convolutions on
+a CUDA device before the first model call (``launch/backend.py``).
+
 ``--serve-async`` serves a simulated stream through ``repro_torch.serving``
 instead: a Poisson (``--arrival-rate``) or closed-loop (rate 0) stream over
 mixed (T, solver) ``EngineKey``s goes to a ``RequestQueue``, an
@@ -45,6 +51,7 @@ from repro_torch.core import ddim_coeffs, ddpm_coeffs
 from repro_torch.device import resolve_device
 from repro_torch.diffusion.convert import dit_init
 from repro_torch.diffusion.dit import dit_apply
+from repro_torch.launch.backend import apply_backend_tune, read_settings
 from repro_torch.obs import Observability
 from repro_torch.runtime import StragglerMitigator
 from repro_torch.sampling import SampleRequest, SamplingEngine, get_sampler
@@ -89,12 +96,18 @@ def resolve_coeffs(args, T: int):
     return (ddim_coeffs if args.sampler == "ddim" else ddpm_coeffs)(T)
 
 
+#: --use-pallas CLI value -> SamplerSpec.use_pallas (None = by device)
+USE_PALLAS = {"auto": None, "on": True, "off": False}
+
+
 def resolve_spec(args, solver: str):
-    """CLI solver flags -> SamplerSpec."""
+    """CLI solver flags -> SamplerSpec: one resolution shared by the sync
+    and the async paths."""
     if solver == "seq":
         return get_sampler("seq")
     return get_sampler(solver, order_k=args.order_k,
                        history_m=args.history_m, window=args.window,
+                       use_pallas=USE_PALLAS[args.use_pallas],
                        fuse_round=args.fuse_round)
 
 
@@ -296,10 +309,21 @@ def main(argv=None):
     p.add_argument("--order-k", type=int, default=8)
     p.add_argument("--history-m", type=int, default=3)
     p.add_argument("--window", type=int, default=0)
+    p.add_argument("--use-pallas", default="auto",
+                   choices=sorted(USE_PALLAS),
+                   help="route the solver's TAA round through the "
+                        "hand-written kernels of repro_torch.kernels.ops "
+                        "(on), their plain PyTorch versions on any device "
+                        "(off), or by the device (auto: the kernels on the "
+                        "card, the plain versions on the CPU)")
     p.add_argument("--fuse-round", action="store_true",
                    help="each Anderson round (Gram + gamma solve + apply) as "
                         "ONE taa_round kernel launch on the card instead of "
                         "the staged Gram -> solve -> apply")
+    p.add_argument("--backend-tune", action="store_true",
+                   help="TF32 for float32 matmuls and convolutions on a "
+                        "CUDA device (launch/backend.py), set before the "
+                        "first model call; a no-op without one")
     p.add_argument("--serve-async", action="store_true",
                    help="serve a simulated request stream through the "
                         "repro_torch.serving continuous-batching layer "
@@ -355,6 +379,8 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
+    if apply_backend_tune(["--backend-tune"] if args.backend_tune else []):
+        print(f"backend tune: {read_settings()}")
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = cfg.reduced()

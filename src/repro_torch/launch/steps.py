@@ -1,6 +1,10 @@
 """The step functions of the drivers (train / prefill / decode / ParaTAA
-serve), as plain functions on trees of tensors — the JAX package's
-``repro.launch.steps`` without its abstract (mesh) specs.
+serve), as plain functions on trees of tensors, and their inputs and state
+as tensors on ``meta`` (shapes and dtypes only, no data) for the dry-run —
+the JAX package's ``repro.launch.steps`` without its meshes (its
+``input_specs``, ``abstract_cache`` and ``abstract_model_state`` mesh-free,
+in the reference's ``PARAM_DTYPE``, each leaf in its own dtype where its
+spec names one).
 
 A train step updates the params and optimizer state in place (the
 counterpart of the reference's donated buffers) and returns its metrics as
@@ -12,13 +16,18 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.device import constant, to_device
 from repro_torch.diffusion import dit as dit_mod
 from repro_torch.diffusion.schedules import make_schedule
 from repro_torch.models import backbone
+from repro_torch.models.pdefs import leaf_dtype, map_defs
 from repro_torch.optim import AdamWConfig, adamw_update, lr_schedule
-from repro_torch.tree import leaves, unflatten
+from repro_torch.tree import leaves, map_tree, unflatten
+
+#: the params' dtype of the dry-run's cells (the reference's PARAM_DTYPE)
+PARAM_DTYPE = torch.bfloat16
+META = torch.device("meta")
 
 
 def make_loss_fn(cfg: ArchConfig):
@@ -62,13 +71,9 @@ def make_grads_fn(cfg: ArchConfig, grad_accum: int = 1):
                 g = torch.autograd.grad(l, flat, allow_unused=True,
                                         materialize_grads=True)
                 with torch.no_grad():
-                    if grads is None:
-                        loss = l.detach().to(torch.float32)
-                        grads = [x.to(torch.float32) for x in g]
-                    else:
-                        loss = loss + l.detach()
-                        for acc, x in zip(grads, g):
-                            acc.add_(x)
+                    loss = l.detach().to(torch.float32) if loss is None \
+                        else loss + l.detach()
+                    grads = accumulate_grads(grads, g)
         finally:
             for p in flat:
                 p.requires_grad_(False)
@@ -80,6 +85,16 @@ def make_grads_fn(cfg: ArchConfig, grad_accum: int = 1):
         return loss, unflatten(params, grads)
 
     return grads_of
+
+
+def accumulate_grads(sums, grads):
+    """Adds one microbatch's grads into the float32 sums (``None``: the
+    first microbatch's, cast, are the sums)."""
+    if sums is None:
+        return [x.to(torch.float32) for x in grads]
+    for acc, x in zip(sums, grads):
+        acc.add_(x)
+    return sums
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
@@ -130,3 +145,64 @@ def make_parataa_serve_step(cfg: ArchConfig, solver_cfg, coeffs):
         return traj[:, 0], info["iters"], info["nfe"]
 
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# Inputs and state on meta (the dry-run's; any device the caller names)
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig, device=META):
+    """The model inputs of this (arch, shape) cell as zeros on ``device``:
+    a DiT training batch of 256 latent tokens, token ids (float embeds for
+    a stub frontend) for train and prefill, one token for decode."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def zeros(shp, dt):
+        return torch.zeros(shp, dtype=dt, device=device)
+
+    if cfg.is_diffusion:
+        n, ld = 256, cfg.latent_dim
+        return {"latents": zeros((b, n, ld), PARAM_DTYPE),
+                "labels": zeros((b,), torch.int32),
+                "noise": zeros((b, n, ld), PARAM_DTYPE),
+                "t": zeros((b,), torch.int32)}
+    if shape.kind in ("train", "prefill"):
+        inputs = zeros((b, s, cfg.d_model), PARAM_DTYPE) \
+            if cfg.frontend == "embed" else zeros((b, s), torch.int32)
+        if shape.kind == "train":
+            return {"inputs": inputs, "labels": zeros((b, s), torch.int32)}
+        return {"inputs": inputs}
+    token = zeros((b, 1, cfg.d_model), PARAM_DTYPE) \
+        if cfg.frontend == "embed" else zeros((b, 1), torch.int32)
+    return {"token": token}
+
+
+def abstract_cache(cfg: ArchConfig, shape: ShapeConfig, device=META,
+                   dtype=PARAM_DTYPE):
+    """The decode/prefill cache of the cell (``backbone.init_cache``) on
+    ``device``."""
+    return backbone.init_cache(cfg, shape.global_batch, shape.seq_len,
+                               dtype, device)
+
+
+def abstract_model_state(cfg: ArchConfig, with_opt: bool = True,
+                         dtype=PARAM_DTYPE, device=META):
+    """(params, optimizer state or None) as empty tensors on ``device``,
+    each param leaf in its spec's dtype or ``dtype``; the AdamW state
+    float32 (master, mu, nu) and its int32 count."""
+    defs = dit_mod.dit_defs(cfg) if cfg.is_diffusion else \
+        backbone.build_defs(cfg)
+    params = map_defs(lambda _, spec: torch.empty(
+        spec.shape, dtype=leaf_dtype(spec, dtype), device=device), defs)
+    if not with_opt:
+        return params, None
+
+    def f32_like(p):
+        return torch.empty(p.shape, dtype=torch.float32, device=device)
+
+    opt = {"master": map_tree(f32_like, params),
+           "mu": map_tree(f32_like, params),
+           "nu": map_tree(f32_like, params),
+           "count": torch.zeros((), dtype=torch.int32, device=device)}
+    return params, opt

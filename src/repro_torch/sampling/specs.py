@@ -9,7 +9,7 @@ explicitly where they differ.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -32,6 +32,11 @@ class SamplerSpec:
     lam:       Gram regularizer (Remark 3.3).
     safeguard: Theorem 3.6 post-processing.
     s_max:     max iterations (0 => 2*T heuristic).
+    use_pallas: kernel routing of the solver's TAA round
+               (``kernels.ops``): None chooses by the device (the
+               kernels on the card, the plain versions on the CPU), True
+               the kernels, False the plain versions on any device
+               (``serve.py --use-pallas``).
     fuse_round: fuse the whole Anderson round (gram + solve + apply) into
                one ``ops.taa_round`` dispatch per iteration — a single
                kernel launch on the card, the bitwise-identical staged
@@ -46,6 +51,7 @@ class SamplerSpec:
     lam: float = 1e-8
     safeguard: bool = True
     s_max: int = 0
+    use_pallas: Optional[bool] = None
     fuse_round: bool = False
 
     @property
@@ -110,7 +116,7 @@ class SamplerSpec:
             history_m=self.history_m, window=self.window, mode=self.solver,
             tau=self.tau, lam=self.lam, s_max=self.s_max_for(T),
             safeguard=self.safeguard, t_init=t_init,
-            fuse_round=self.fuse_round)
+            use_pallas=self.use_pallas, fuse_round=self.fuse_round)
 
     def stepwise_config(self, T: int) -> ParaTAAConfig:
         """Resolve this spec for the resumable stepwise solver.  Unlike

@@ -20,7 +20,10 @@ from tests.test_torch_helpers import normal
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
-    [REPO / "chip_smoke.py", REPO / "examples" / "torch_backbone_denoiser.py"]
+    [REPO / "chip_smoke.py"] + [
+        REPO / "examples" / f"torch_{name}.py"
+        for name in ("backbone_denoiser", "train_and_serve",
+                     "trajectory_variation", "quickstart")]
 
 
 def _imports(path: Path):

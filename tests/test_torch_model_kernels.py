@@ -6,6 +6,8 @@ mode, on the same numpy inputs, with the JAX tests' tolerances.  Also the
 wrappers' validation, which runs on the CPU up to the device check.  The
 CUDA kernels themselves are tested on the card by
 tests/test_torch_cuda_model_kernels.py."""
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -200,9 +202,12 @@ def test_ops_on_cpu_tensors_launch_and_build_nothing():
 
 
 def test_ops_refuse_other_devices():
-    meta = torch.zeros(1, 1, 4, 8, device="meta")
+    """A device with neither a kernel nor a plain path raises (a ``meta``
+    tensor takes the plain path since the dry-run counts on it:
+    tests/test_torch_use_pallas.py)."""
+    other = SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(ValueError, match="no kernel or plain path"):
-        tops.attention(meta, meta, meta)
+        tops.attention(other, other, other)
 
 
 CUDA = "one CUDA device"
