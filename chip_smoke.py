@@ -155,10 +155,33 @@ is not 0):
    measured prefill; (d) ``examples/torch_{train_and_serve,
    trajectory_variation,quickstart}.py`` at their defaults on cuda.
 
+10. placement on ``torch.distributed``, last: a world of one rank over
+   NCCL (``init_distributed("cuda")``, a ``file://`` rendezvous in a
+   temporary directory), at full DiT-XL width with phase 3's weights.
+   (a) phase 3's geometry with phase 9 (a)'s TF32: ``run_batch`` and a
+   stepwise drain with a mid-solve refill (3 requests over 2 lanes) on
+   ``Placement.for_mesh(make_mesh("debug-time", 1, 1, 1))`` against
+   ``Placement.host()``, fused and staged, in turns (host, mesh, mesh,
+   host), each solve under sync-debug mode "error": trajectories bit for
+   bit, iters, nfe, polls and K1-K3 launches equal; the NCCL collectives
+   counted (``repro_torch.comm``: one window all-gather and one poll
+   all-reduce an iteration, five output all-gathers a dispatch) and each
+   one's wall at the solve's shapes (CUDA events).  (b) ``serve.main`` at
+   phase 9 (b)'s geometry with ``--mesh debug --data-parallel 1
+   --model-parallel 1`` and with ``--serve-async --chunk-iters 2
+   --fuse-round --mesh ... --chaos-drop 1`` (one card: the injector keeps
+   the sole survivor) against the same runs without ``--mesh``: equal
+   iters, nfe and x0; then a ``ResilientServingLoop`` drain (6 requests, 2
+   lanes, T=25, 16 tokens) with one rebuild onto the same card mid-drain
+   (``_rebuild``: ``fetch_bank`` -> ``plan_elastic`` -> a new mesh and
+   engine -> ``adopt_bank``): every ticket bit for bit the uninterrupted
+   drain's; ``rebuild_wall_s`` and the bytes moved printed.
+
 Then one JSON line of per-kernel numbers (K1-K3 with ``wrapper_launches``,
-phase 7's, ``ssm_wrapper_launches``, phase 8's, and
-``use_pallas_auto_launches``, phase 9 (b)'s; K3 with ``tf32_launches``,
-phase 9 (a)'s), and last the line
+phase 7's, ``ssm_wrapper_launches``, phase 8's,
+``use_pallas_auto_launches``, phase 9 (b)'s, and ``mesh_launches``, phase
+10 (a)'s mesh run; K3 with ``tf32_launches``, phase 9 (a)'s), and last the
+line
 ``{"ok": true, "device": {...}}``.  Without CUDA, or run from a directory
 without the repository's ``src/``, it fails before printing any result.
 """
@@ -2219,6 +2242,311 @@ def examples_on_card():
 # --- phase 4: the model kernels through kernels.ops at model widths ----------
 
 
+# --- phase 10: placement on torch.distributed, a world of one over NCCL ------
+
+#: (b): serve.main's own geometry, as phase 9 (b)
+MESH_FLAGS = ["--mesh", "debug", "--data-parallel", "1", "--model-parallel",
+              "1"]
+ASYNC_FLAGS = ["--serve-async", "--chunk-iters", "2", "--fuse-round"]
+
+
+def mesh_drain(engine, requests):
+    """A stepwise drain of 3 requests over 2 lanes with a mid-solve
+    refill: the first request retires at its quality budget and the third
+    takes its lane.  Returns {seed: result}."""
+    bank = engine.stepwise_open(2, chunk_iters=2)
+    engine.stepwise_refill(bank, [0, 1], requests[:2])
+    queued, got, rounds = [requests[2]], {}, 0
+    while any(r is not None for r in bank.requests) or queued:
+        engine.stepwise_step(bank)
+        for lane, res in engine.stepwise_harvest(bank):
+            got[res.request.seed] = res
+            if queued:
+                engine.stepwise_refill(bank, [lane], [queued.pop()])
+        rounds += 1
+        check(rounds < 200, "phase 10 (a): the drain does not end")
+    return got
+
+
+def same_results(a, b) -> bool:
+    return len(a) == len(b) and all(
+        x.trajectory.tobytes() == y.trajectory.tobytes()
+        and (x.iters, x.nfe) == (y.iters, y.nfe) for x, y in zip(a, b))
+
+
+def placement_path():
+    """Phase 10: the mesh path on a world of one rank over NCCL (a
+    ``file://`` rendezvous in a temporary directory) at full DiT-XL
+    width.  (a) ``run_batch`` and a stepwise drain with a mid-solve refill
+    on ``Placement.for_mesh(make_mesh("debug-time", 1, 1, 1))`` against
+    ``Placement.host()``, fused and staged, TF32 on (phase 9 (a)'s
+    switches), each solve under sync-debug mode "error"; (b) ``serve.main``
+    with ``--mesh debug`` (sync) and ``--serve-async --chaos-drop 1``
+    against the same runs without a mesh, and one mid-drain rebuild onto
+    the same card through ``ResilientServingLoop._rebuild``."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import comm
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import ddim_coeffs
+    from repro_torch.diffusion.convert import dit_init
+    from repro_torch.kernels import taa_update
+    from repro_torch.launch import serve
+    from repro_torch.launch.backend import (apply_backend_tune, read_settings,
+                                            write_settings)
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.models import shardctx
+    from repro_torch.sampling import (Placement, SampleRequest,
+                                      SamplingEngine, get_sampler)
+    from repro_torch.serving import (Batcher, BatchingPolicy,
+                                     DeviceLossError, EngineKey,
+                                     EngineRegistry, RequestQueue,
+                                     ResilientServingLoop)
+
+    cuda = torch.device("cuda")
+    rdv = tempfile.mkdtemp(prefix="chip_smoke_rdv_")
+    t0 = time.monotonic()
+    backend = init_distributed("cuda", world_size=1, rank=0,
+                               init_method=f"file://{rdv}/store",
+                               timeout_s=300)
+    mesh = make_mesh("debug-time", data_parallel=1, time_parallel=1,
+                     model_parallel=1, device_type="cuda")
+    plc = Placement.for_mesh(mesh)
+    print(f"phase 10: {backend} world of {dist.get_world_size()}, "
+          f"{plc.describe()}, up in {time.monotonic() - t0} s")
+    check(backend == "nccl", f"phase 10: backend {backend}")
+    cfg = get_arch("dit-xl")
+    params = dit_init(cfg, SEED, cuda, ada_scale=ADA_SCALE)
+    coeffs = ddim_coeffs(T_STEPS)
+    rng = np.random.default_rng(SEED)
+    requests = [SampleRequest(label=int(rng.integers(0, cfg.num_classes)),
+                              seed=int(rng.integers(1 << 30)))
+                for _ in range(REQUESTS)]
+    drain_reqs = [SampleRequest(label=1, seed=11, quality_steps=2),
+                  SampleRequest(label=2, seed=12),
+                  SampleRequest(label=3, seed=13)]
+    taa = dict(order_k=ORDER_K, history_m=HISTORY_M)
+    before = read_settings()
+    apply_backend_tune(["--backend-tune"])
+    out = {}
+    try:
+        for mode, fuse in (("fused", True), ("staged", False)):
+            spec = get_sampler("taa", fuse_round=fuse, **taa)
+            runs = {}
+            for label, placement in (("host", None), ("mesh", plc),
+                                     ("mesh again", plc), ("host again",
+                                                           None)):
+                engine = strict_solves(SamplingEngine(
+                    serve.make_eps_apply(cfg), params, coeffs, spec,
+                    sample_shape=(NUM_TOKENS, cfg.latent_dim), device=cuda,
+                    placement=placement))
+                taa_update.reset_launches()
+                comm.reset()
+                t1 = time.monotonic()
+                res = engine.run_batch(requests, batch_size=REQUESTS)
+                wall = time.monotonic() - t1
+                d = engine.last_dispatches[0]
+                runs[label] = dict(results=res, wall_s=wall,
+                                   launches=dict(taa_update.launches),
+                                   comm=dict(comm.counts),
+                                   iters=d["device_iters"],
+                                   polls=d["blocking_polls"])
+                if label in ("host", "mesh"):
+                    comm.reset()
+                    got = mesh_drain(engine, drain_reqs)
+                    runs[label]["drain"] = [got[k] for k in sorted(got)]
+                    runs[label]["drain_comm"] = dict(comm.counts)
+            host, sh = runs["host"], runs["mesh"]
+            iters = host["iters"]
+            gathers = sh["comm"]["all-gather"]
+            print(f"phase 10 (a) {mode}: run_batch iters host {iters} / mesh "
+                  f"{sh['iters']}, nfe {[r.nfe for r in host['results']]} / "
+                  f"{[r.nfe for r in sh['results']]}; K1-K3 launches host "
+                  f"{host['launches']} / mesh {sh['launches']}; blocking "
+                  f"polls {host['polls']} / {sh['polls']}; NCCL collectives "
+                  f"in the mesh run {sh['comm']} over {sh['iters']} "
+                  f"iterations: {(gathers - 5) / max(sh['iters'], 1)} window "
+                  f"all-gathers an iteration (+5 output all-gathers), "
+                  f"{sh['comm']['all-reduce'] / max(sh['iters'], 1)} poll "
+                  f"all-reduces an iteration; walls s (host, mesh, mesh, "
+                  f"host) {host['wall_s']}, {sh['wall_s']}, "
+                  f"{runs['mesh again']['wall_s']}, "
+                  f"{runs['host again']['wall_s']}; drain collectives "
+                  f"{sh['drain_comm']}")
+            check(same_results(sh["results"], host["results"])
+                  and same_results(runs["mesh again"]["results"],
+                                   host["results"]),
+                  f"phase 10 (a) {mode}: run_batch not bit for bit")
+            check(same_results(sh["drain"], host["drain"]),
+                  f"phase 10 (a) {mode}: stepwise drain not bit for bit")
+            check(sh["launches"] == host["launches"] and sh["iters"] == iters
+                  and sh["polls"] == host["polls"],
+                  f"phase 10 (a) {mode}: launches/iters/polls differ")
+            want = {"taa_round": iters} if fuse else \
+                {"taa_gram": iters, "taa_apply": iters}
+            check(all(sh["launches"][k] == v for k, v in want.items()),
+                  f"phase 10 (a) {mode}: launches {sh['launches']}")
+            check(sh["comm"]["all-gather"] == iters + 5
+                  and sh["comm"]["all-reduce"] == iters,
+                  f"phase 10 (a) {mode}: collectives {sh['comm']}")
+            out[mode] = dict(iters=iters, launches=sh["launches"],
+                             comm=sh["comm"], wall_host_s=host["wall_s"],
+                             wall_mesh_s=sh["wall_s"])
+        # the wall of one window all-gather and one poll all-reduce at the
+        # solve's shapes (2 lanes x 25 rows x 4096 float32)
+        e_w = torch.randn(REQUESTS, T_STEPS, NUM_TOKENS * cfg.latent_dim,
+                          device=cuda)
+        flag = torch.ones((), dtype=torch.int32, device=cuda)
+        with shardctx.use_mesh(mesh):
+            gather_ms = cuda_ms(lambda: shardctx.window_gather(
+                e_w, "time", 1, T_STEPS))
+        reduce_ms = cuda_ms(lambda: comm.all_reduce_min(
+            flag, plc.data_group))
+        print(f"phase 10 (a) NCCL all_gather of {e_w.numel() * 4} B (one "
+              f"window): {gather_ms} ms; all_reduce of the poll flag: "
+              f"{reduce_ms} ms (CUDA events, median)")
+        out.update(gather_ms=gather_ms, reduce_ms=reduce_ms)
+    finally:
+        write_settings(before)
+
+    # (b) serve.main with the mesh flags against without, phase 3's weights
+    real_init = serve.dit_init
+    serve.dit_init = lambda cfg, seed, device: params
+    try:
+        served = {}
+        for label, flags in (("sync", []), ("sync mesh", MESH_FLAGS),
+                             ("async", ASYNC_FLAGS),
+                             ("async mesh chaos", ASYNC_FLAGS + MESH_FLAGS
+                              + ["--chaos-drop", "1"])):
+            t1 = time.monotonic()
+            x0, stats = serve.main(USE_PALLAS_FLAGS + flags)
+            served[label] = dict(x0=x0, iters=[s["iters"] for s in stats],
+                                 nfe=[s["nfe"] for s in stats],
+                                 wall_s=time.monotonic() - t1)
+        for a, b in (("sync", "sync mesh"), ("async", "async mesh chaos")):
+            print(f"phase 10 (b) serve.main {b}: iters {served[b]['iters']} "
+                  f"nfe {served[b]['nfe']} (without --mesh "
+                  f"{served[a]['iters']} / {served[a]['nfe']}); walls "
+                  f"{served[a]['wall_s']} / {served[b]['wall_s']} s")
+            check(served[a]["iters"] == served[b]["iters"]
+                  and served[a]["nfe"] == served[b]["nfe"]
+                  and np.array_equal(served[a]["x0"], served[b]["x0"]),
+                  f"phase 10 (b): {b} differs from {a}")
+    finally:
+        serve.dit_init = real_init
+
+    # (b) one mid-drain rebuild onto the same card (a card cannot lose
+    # itself, so the rebuild is called, not injected)
+    key = EngineKey("dit-xl", T_STEPS, "taa")
+    spec = get_sampler("taa", fuse_round=True, **taa)
+
+    def factory(k, placement):
+        return SamplingEngine(serve.make_eps_apply(cfg), params,
+                              ddim_coeffs(k.T), spec,
+                              sample_shape=(16, cfg.latent_dim),
+                              device=cuda, placement=placement)
+
+    mesh_plc = Placement.for_mesh(make_mesh("debug", data_parallel=1,
+                                            model_parallel=1,
+                                            device_type="cuda"))
+    traffic = [SampleRequest(label=i, seed=200 + i,
+                             **({} if i % 2 else {"quality_steps": 3}))
+               for i in range(6)]
+
+    def drain(rebuild_at=None):
+        queue = RequestQueue()
+        loop = ResilientServingLoop(
+            EngineRegistry(lambda k: factory(k, mesh_plc)), queue,
+            Batcher(BatchingPolicy(max_batch=2)), engine_factory=factory,
+            placement=mesh_plc, chunk_iters=2, min_full_quality_devices=1)
+        tickets = [queue.submit(r, key) for r in traffic]
+        rounds, lanes = 0, 0
+        while len(queue) or loop._occupied_lanes():
+            if rounds == rebuild_at:
+                lanes = loop._occupied_lanes()
+                loop._rebuild(loop._survivors(),
+                              DeviceLossError("phase 10 drill"))
+            loop.pump(flush=True)
+            rounds += 1
+        return loop, [t.result(timeout=0) for t in tickets], lanes
+
+    _, base, _ = drain()
+    loop, got, lanes = drain(rebuild_at=3)
+    res = loop.resilience
+    print(f"phase 10 (b) rebuild mid-drain onto the same card: "
+          f"{res['rebuilds']} rebuild(s) with {lanes} live lane(s), "
+          f"recovered {res['recovered_lanes']}, rebuild_wall_s "
+          f"{res['rebuild_wall_s']}, {res['rebuild_bytes']} B moved through "
+          f"the host; {len(got)}/{len(traffic)} tickets, iters "
+          f"{[r.iters for r in got]}")
+    check(res["rebuilds"] == 1 and res["recovered_lanes"] == lanes > 0,
+          f"phase 10 (b): rebuild counters {dict(res)}")
+    check(same_results(got, base),
+          "phase 10 (b): rebuilt drain not bit for bit the uninterrupted one")
+    out.update(served={k: dict(iters=v["iters"], nfe=v["nfe"],
+                               wall_s=v["wall_s"])
+                       for k, v in served.items()},
+               rebuild_wall_s=res["rebuild_wall_s"],
+               rebuild_bytes=res["rebuild_bytes"])
+    del params
+    free_card()
+    out["moe"] = moe_expert_parallel()
+    dist.destroy_process_group()
+    shutil.rmtree(rdv, ignore_errors=True)
+    return out
+
+
+def moe_expert_parallel():
+    """Phase 10 (c): qwen2-moe-a2.7b's MoE block (weights drawn on the card,
+    bf16) at phase 8 (d2)'s shapes — capacity factor 1.25, 4 x 2048 tokens
+    — through the expert-parallel function (``moe._moe_shard_map``) on a
+    (data 1, model 1) mesh against the local path: at one model rank it
+    owns every expert and the same per-rank capacity, so the outputs agree
+    bit for bit; its two all-reduces (the partials over model, the aux loss
+    over data) counted and both paths timed."""
+    import torch
+
+    from repro_torch import comm
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.pdefs import init_on_device
+
+    cuda = torch.device("cuda")
+    cfg = get_arch(MOE_ARCH)
+    params = init_on_device(moe.moe_def(cfg), SEED, cuda,
+                            dtype=torch.bfloat16)
+    gen = torch.Generator(device=cuda).manual_seed(SEED + 1)
+    x = torch.randn((4, 2048, cfg.d_model), generator=gen, device=cuda
+                    ).to(torch.bfloat16)
+    mesh = make_mesh("debug", data_parallel=1, model_parallel=1,
+                     device_type="cuda")
+    with torch.inference_mode():
+        y_loc, aux_loc = moe._moe_local(params, cfg, x)
+        comm.reset()
+        y_ep, aux_ep = moe._moe_shard_map(params, cfg, x, mesh, ("data",), 1)
+        counts = dict(comm.counts)
+        local_ms = cuda_ms(lambda: moe._moe_local(params, cfg, x),
+                           warmup=1, samples=5, reps=2)
+        ep_ms = cuda_ms(lambda: moe._moe_shard_map(
+            params, cfg, x, mesh, ("data",), 1), warmup=1, samples=5, reps=2)
+    same = torch.equal(y_loc, y_ep) and torch.equal(aux_loc, aux_ep)
+    print(f"phase 10 (c) {MOE_ARCH} MoE block, bf16, factor "
+          f"{cfg.moe_capacity_factor}, 4 x 2048: expert-parallel at model=1 "
+          f"{'bit for bit' if same else 'NOT equal to'} the local path "
+          f"(max |dy| {float((y_loc.float() - y_ep.float()).abs().max())}); "
+          f"collectives {counts}; ms local {local_ms}, expert-parallel "
+          f"{ep_ms} (CUDA events)")
+    check(same, "phase 10 (c): expert-parallel MoE differs from local")
+    check(counts["all-reduce"] == 2, f"phase 10 (c): collectives {counts}")
+    return dict(local_ms=local_ms, ep_ms=ep_ms, collectives=counts)
+
+
 def model_cases():
     """The phase-4 calls, at the full widths of models this repo configures;
     inputs on the card from a numpy seed, at the JAX tests' magnitudes
@@ -2654,12 +2982,20 @@ def main() -> int:
     dryrun_against_card()
     t9 = time.monotonic()
     examples_on_card()
+    t10 = time.monotonic()
+    free_card()
+    mesh = placement_path()
+    for name in ("taa_gram", "taa_apply", "taa_round"):
+        mode = "fused" if name == "taa_round" else "staged"
+        next(r for r in rows if r["name"] == name)["mesh_launches"] = \
+            mesh[mode]["launches"][name]
     print(f"phase seconds: build {t1 - t0}, taa kernels {t2 - t1}, DiT-XL "
           f"serving and TF32 {t3 - t2}, model kernels {t4 - t3}, DiT-XL "
           f"stepwise serving {t5 - t4}, --use-pallas {t5b - t5}, DiT-XL "
           f"train-checkpoint-serve {t6 - t5b}, qwen3-0.6b wrapper/LM "
           f"{t7 - t6}, mamba2/recurrentgemma/MoE {t8 - t7}, dry-run against "
-          f"the card {t9 - t8}, examples {time.monotonic() - t9}")
+          f"the card {t9 - t8}, examples {t10 - t9}, placement on a world "
+          f"of one {time.monotonic() - t10}")
     # the card again, so that the end of a long log still names it
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": rows}))

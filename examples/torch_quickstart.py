@@ -10,6 +10,10 @@ Train a tiny DiT on synthetic latents, then:
      parallel steps;
   3. serve a batch of typed ``SampleRequest``s through a
      ``SamplingEngine``, the requests the solver's lane axis;
+  4. give that engine an explicit ``Placement`` on a rank mesh
+     (``repro_torch.launch.mesh``, a world of one rank here: gloo on the
+     CPU, NCCL on the card): the request axis over ``data``, bit for bit
+     the host placement, its collectives counted (``repro_torch.comm``);
   5. serve the same requests through the ``repro_torch.serving`` layer
      (``RequestQueue`` -> ``Ticket`` futures, a ``ServingLoop`` draining
      fixed-slot batches), bit for bit ``run_batch``;
@@ -28,18 +32,27 @@ Train a tiny DiT on synthetic latents, then:
      full tolerance on the same ticket; with ``cache=True`` and the
      registry's queue hooks, a repeat submission warm-starts from its
      cached trajectory (Sec 4.2);
+  9. time-axis placement: a ``*-time`` mesh shards the solve WINDOW of
+     each request over ``time`` (each rank evaluates its rows, one exact
+     all-gather an iteration restores the window), bit for bit again;
  10. observability (``repro_torch.obs``): one ``Observability`` bundle
      wired into the queue and loop gives a metrics registry, a Chrome-
      trace span tracer and per-lane residual curves, at no extra poll;
  11. the fused Anderson round (``fuse_round``, ``serve.py --fuse-round``):
      one ``taa_round`` kernel launch an iteration on the card instead of
      the staged Gram -> solve -> apply; the engine counts the modeled
-     ``update_launches`` (1 an iteration fused, 3 staged).
+     ``update_launches`` (1 an iteration fused, 3 staged);
+ 12. resilience (``repro_torch.serving.resilience``): a device fault in a
+     serving round goes to the ``ResilientServingLoop``'s restart policy,
+     which rebuilds the engine on the surviving ranks mid-drain
+     (``fetch_bank`` -> ``plan_elastic`` -> ``adopt_bank``); every ticket
+     resolves bit for bit as in an uninterrupted drain.  Losing ranks
+     for real takes several: ``torchrun --nproc-per-node 4 -m
+     repro_torch.launch.serve --device cpu --serve-async --chunk-iters 2
+     --mesh debug --data-parallel 4 --model-parallel 1 --chaos-drop 2``.
 
-The reference's steps 4 and 9 (a request axis and a solve window sharded
-over a device mesh) and 12 (losing devices mid-drain, the resilient
-serving loop) need the port's meshes and ``serving.resilience``, which
-come with its placement slice; they are left out here.
+The example runs in one process; the mesh steps start a one-rank process
+group and tear it down at the end.
 
     PYTHONPATH=src python examples/torch_quickstart.py --device cpu
 
@@ -51,7 +64,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch import comm
 from repro_torch.configs.registry import ARCHS
 from repro_torch.core import ddim_coeffs
 from repro_torch.data.pipeline import LatentPipeline
@@ -59,13 +74,15 @@ from repro_torch.device import resolve_device
 from repro_torch.diffusion import dit
 from repro_torch.diffusion.convert import dit_init
 from repro_torch.launch import steps as S
+from repro_torch.launch.mesh import init_distributed, make_mesh
 from repro_torch.optim import adamw_init
-from repro_torch.sampling import (SampleRequest, SamplingEngine, draw_noises,
-                                  get_sampler, run)
-from repro_torch.serving import (Batcher, BatchingPolicy, EngineKey,
-                                 EngineRegistry, Observability,
+from repro_torch.runtime import RestartPolicy
+from repro_torch.sampling import (Placement, SampleRequest, SamplingEngine,
+                                  draw_noises, get_sampler, run)
+from repro_torch.serving import (Batcher, BatchingPolicy, DeviceLossError,
+                                 EngineKey, EngineRegistry, Observability,
                                  RefinePlanner, RefinePolicy, RequestQueue,
-                                 ServingLoop)
+                                 ResilientServingLoop, ServingLoop)
 
 
 def host(x) -> np.ndarray:
@@ -133,10 +150,10 @@ def main(argv=None):
     def eps_apply(params, xw, taus, labels):
         return dit.dit_apply(params, cfg, xw, taus, labels)
 
-    def engine(spec):
+    def engine(spec, placement=None):
         return SamplingEngine(eps_apply, params, coeffs, spec,
                               sample_shape=(16, cfg.latent_dim),
-                              device=device)
+                              device=device, placement=placement)
 
     taa_engine = engine(get_sampler("taa"))
     requests = [SampleRequest(label=i % cfg.num_classes, seed=100 + i)
@@ -149,6 +166,22 @@ def main(argv=None):
           f"{taa_engine.throughput():.2f} req/s")
     assert taa_engine.stats["batches"] == 1 and all(r.converged
                                                     for r in results)
+
+    # --- 4. placement: the same engine on a rank mesh -----------------------
+    # one process = a world of one rank (torchrun starts more: serve.py
+    # --mesh); the engine holds its data shard's lanes and all-gathers
+    # what the caller reads, so the results are the host placement's
+    owned = not dist.is_initialized()
+    init_distributed(device, world_size=1, rank=0)
+    mesh = make_mesh("debug", data_parallel=1, model_parallel=1,
+                     device_type=device.type)
+    meshed = engine(get_sampler("taa"), Placement.for_mesh(mesh))
+    comm.reset()
+    mesh_results = meshed.run_batch(requests, batch_size=4)
+    print(f"placement: {meshed.placement.describe()}; collectives "
+          f"{comm.counts}; bit for bit the host placement: "
+          f"{same(mesh_results, results, exact=True)}")
+    assert same(mesh_results, results, exact=True)
 
     # --- 5. the serving layer: queue, tickets, a draining loop --------------
     registry = EngineRegistry(lambda key: SamplingEngine(
@@ -236,6 +269,19 @@ def main(argv=None):
           f"submission re-converged in {warm.iters} iteration(s)")
     assert warm.converged
 
+    # --- 9. time-axis placement: shard the solve window of each request ----
+    tplc = Placement.for_mesh(make_mesh("debug-time", data_parallel=1,
+                                        time_parallel=1, model_parallel=1,
+                                        device_type=device.type))
+    comm.reset()
+    window = engine(get_sampler("taa"), tplc).run_batch(requests,
+                                                        batch_size=4)
+    iters = max(r.iters for r in window)
+    print(f"time-axis placement: {tplc.describe()}; "
+          f"{comm.counts['all-gather'] - 5} window all-gather(s) over {iters}"
+          f" iteration(s); bit for bit: {same(window, results, exact=True)}")
+    assert same(window, results, exact=True)
+
     # --- 10. observability: metrics, span traces, convergence curves --------
     obs = Observability.enabled()
     queue = RequestQueue(obs=obs)
@@ -273,6 +319,50 @@ def main(argv=None):
           f"{same(fused_results, results, exact)}")
     assert same(fused_results, results, exact)
     assert d_f["update_launches"] == d_f["device_iters"]
+
+    # --- 12. resilience: a faulted round, a rebuild, no ticket dropped ------
+    plc = Placement.for_mesh(mesh)
+
+    def factory(k, placement):
+        return SamplingEngine(eps_apply, params, ddim_coeffs(k.T),
+                              get_sampler(k.solver),
+                              sample_shape=(16, cfg.latent_dim),
+                              device=device, placement=placement)
+
+    def drain(fault_at=None):
+        reg = EngineRegistry(lambda k: factory(k, plc))
+        q = RequestQueue()
+        lp = ResilientServingLoop(
+            reg, q, Batcher(BatchingPolicy(max_batch=4)),
+            engine_factory=factory, placement=plc, chunk_iters=2,
+            min_full_quality_devices=1, sleep=lambda s: None,
+            policy=RestartPolicy(elastic_after=0))
+        tks = [q.submit(SampleRequest(label=i % cfg.num_classes,
+                                      seed=140 + i), key) for i in range(4)]
+        if fault_at is not None:
+            eng, calls = reg.get(key), []
+            real_step = eng.stepwise_step
+
+            def flaky(bank):
+                calls.append(1)
+                if len(calls) == fault_at:
+                    raise DeviceLossError("simulated fault in a round")
+                return real_step(bank)
+            eng.stepwise_step = flaky
+        lp.drain()
+        return lp, [t.result() for t in tks]
+
+    _, calm = drain()
+    storm_loop, storm = drain(fault_at=2)
+    res = storm_loop.resilience
+    print(f"resilience: a faulted round -> {res['rebuilds']} rebuild(s) in "
+          f"{res['rebuild_wall_s']:.3f}s, {res['recovered_lanes']} live "
+          f"lane(s) resumed ({res['rebuild_bytes']} B through the host); "
+          f"every ticket resolved, bit for bit the uninterrupted drain: "
+          f"{same(storm, calm, exact=True)}")
+    assert res["rebuilds"] == 1 and same(storm, calm, exact=True)
+    if owned:
+        dist.destroy_process_group()
     return par, seq
 
 

@@ -1,0 +1,103 @@
+"""The port's collectives, counted where they are issued.
+
+Every collective of the port goes through one of these wrappers, so a run
+can say how many it issued and how many bytes each kind moved: the JAX
+package reads the same numbers out of partitioned HLO
+(``roofline/analysis.py::parse_collective_bytes``); eager PyTorch has no
+HLO, so the call sites count instead.  ``counts[kind]`` is the number of
+calls and ``nbytes[kind]`` the operand bytes a rank contributed (the local
+shard of an all-gather, the reduced tensor of an all-reduce, the
+broadcast tensor; a broadcast control object counts no bytes), under the
+HLO's names.
+
+Each call is a plain ``torch.distributed`` call on a process group: NCCL
+on the card, gloo on the CPU.  An all-gather is exact data movement (no
+arithmetic), which is what keeps a sharded solve bit for bit equal to the
+unsharded one.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import torch
+import torch.distributed as dist
+
+KINDS = ("all-gather", "all-reduce", "broadcast")
+
+#: dtypes that cross the wire as same-size integers (gloo takes no bool)
+_WIRE = {torch.bool: torch.uint8}
+
+counts = {k: 0 for k in KINDS}
+nbytes = {k: 0 for k in KINDS}
+
+
+def reset() -> None:
+    """Zero the counts (before a run whose collectives are read)."""
+    for k in KINDS:
+        counts[k] = 0
+        nbytes[k] = 0
+
+
+def _count(kind: str, t: torch.Tensor) -> None:
+    counts[kind] += 1
+    nbytes[kind] += t.numel() * t.element_size()
+
+
+def group_size(group) -> int:
+    return dist.get_world_size(group)
+
+
+def all_gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` of ``group``, concatenated along ``dim`` in group
+    rank order (= the mesh coordinate's order: group ranks are sorted
+    global ranks, and a mesh lays its ranks out in increasing order).
+    bool moves as its bytes (gloo takes no bool)."""
+    x = x.contiguous()
+    _count("all-gather", x)
+    wire = x.view(_WIRE.get(x.dtype, x.dtype))
+    parts: List[torch.Tensor] = [torch.empty_like(wire)
+                                 for _ in range(group_size(group))]
+    dist.all_gather(parts, wire, group=group)
+    return torch.cat(parts, dim=dim).view(x.dtype)
+
+
+def all_reduce_min(x: torch.Tensor, group) -> torch.Tensor:
+    """Elementwise minimum of ``x`` over ``group`` (a new tensor)."""
+    out = x.clone()
+    _count("all-reduce", out)
+    dist.all_reduce(out, op=dist.ReduceOp.MIN, group=group)
+    return out
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Elementwise sum of ``x`` over ``group`` (a new tensor)."""
+    out = x.clone()
+    _count("all-reduce", out)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+def broadcast_(x: torch.Tensor, src: int, group=None) -> torch.Tensor:
+    """``x`` overwritten in place with global rank ``src``'s."""
+    _count("broadcast", x)
+    dist.broadcast(x, src=src, group=group)
+    return x
+
+
+def broadcast_object(obj, src: int = 0, group=None):
+    """Rank ``src``'s ``obj`` on every rank of ``group`` (the default group
+    when None): a control message, counted as a broadcast without bytes
+    (its pickle is not step traffic)."""
+    buf = [obj if dist.get_rank() == src else None]
+    dist.broadcast_object_list(buf, src=src, group=group)
+    counts["broadcast"] += 1
+    return buf[0]
+
+
+def world() -> int:
+    """World size of the default group (1 when none is initialized)."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0

@@ -29,6 +29,7 @@ from repro_torch.kernels import ops as _ops
 def anderson_update(x_rows, R, dX, dF, window_mask, *, mode: str,
                     lam: float, safeguard_mask=None,
                     use_pallas: Optional[bool] = None,
+                    time_axis: Optional[str] = None,
                     fuse_round: bool = False):
     """One accelerated update over the active window.
 
@@ -41,6 +42,11 @@ def anderson_update(x_rows, R, dX, dF, window_mask, *, mode: str,
     use_pallas: kernel routing of the round (``kernels.ops``): None
         chooses by the device, True the kernels, False the plain
         versions on any device.
+    time_axis: mesh axis the caller's solve window shards over.  The
+        solver gathers the window's eps rows before the update, so every
+        operand here is replicated over that axis and each time rank runs
+        the same round: the argument changes no value and issues no
+        collective (see ``kernels.ops``).
     fuse_round: the whole round as one ``ops.taa_round`` dispatch (one
         kernel launch on the card) instead of the staged Gram -> solve ->
         apply; on the CPU both are the same staged composition.
@@ -51,7 +57,8 @@ def anderson_update(x_rows, R, dX, dF, window_mask, *, mode: str,
     wmask = window_mask.to(torch.float32)
     round_fn = _ops.taa_round if fuse_round else _ops.taa_round_staged
     return round_fn(x_rows, R, dX, dF, wmask, mode=mode, lam=lam,
-                    safeguard_mask=safeguard_mask, use_pallas=use_pallas)
+                    safeguard_mask=safeguard_mask, use_pallas=use_pallas,
+                    time_axis=time_axis)
 
 
 # ---------------------------------------------------------------------------

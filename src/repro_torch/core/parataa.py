@@ -25,10 +25,13 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import comm
 from repro_torch.core.anderson import anderson_update
 from repro_torch.core.coeffs import SolverCoeffs, system_matrices
 from repro_torch.core.system import first_order_residuals
 from repro_torch.device import constant, to_device
+from repro_torch.models.shardctx import (current_mesh, window_gather,
+                                         window_shard)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +51,15 @@ class ParaTAAConfig:
                                # False = the plain versions on any device)
     fuse_round: bool = False   # the Anderson round as ONE ops.taa_round
                                # dispatch (one kernel launch on the card)
+    time_axis: Optional[str] = None  # mesh axis the solve window shards
+                               # over (None = unsharded), resolved against
+                               # the ambient shardctx mesh.  Sharded: the
+                               # window eps eval only — each time rank
+                               # evaluates w / time_shards rows of every
+                               # lane and one all-gather (exact) brings
+                               # them back, so every later step runs on
+                               # replicated operands and the result is the
+                               # unsharded one bit for bit
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,10 +155,18 @@ def _iterate(state: SolverState, static, cfg: ParaTAAConfig,
     t1 = torch.clamp(t2 - w + 1, min=0)
 
     # --- line 3: evaluate eps at each lane's window t1+1 .. t1+w ------------
+    # The w window rows are independent in this pass, so they shard over
+    # the `time` mesh axis: each time rank evaluates its w / time_shards
+    # rows of every lane, and one all-gather (exact data movement) gives
+    # every rank the whole window.  Everything below runs on replicated
+    # operands, as the JAX package's replicate pins hold it.
     start = torch.clamp(t1 + 1, max=T + 1 - w)   # dynamic_slice's clamp
     idx = start[:, None] + torch.arange(w, device=dev)          # (B, w)
-    xs = x[lanes[:, None], idx]                                 # (B, w, D)
-    e_w = eps_fn(xs, static["taus"][idx]).to(e.dtype)
+    ta = cfg.time_axis
+    idx_local = window_shard(idx, ta, dim=1)
+    xs = x[lanes[:, None], idx_local]                           # (B, w', D)
+    e_w = window_gather(eps_fn(xs, static["taus"][idx_local]).to(e.dtype),
+                        ta, dim=1, rows=w)
     e = e.clone()
     e[lanes[:, None], idx] = e_w
 
@@ -199,7 +219,7 @@ def _iterate(state: SolverState, static, cfg: ParaTAAConfig,
     x_rows_new = anderson_update(
         x[:, :T], R.to(x.dtype), state.dX, dF, upd_mask,
         mode=mode, lam=cfg.lam, safeguard_mask=guard,
-        use_pallas=cfg.use_pallas, fuse_round=cfg.fuse_round)
+        use_pallas=cfg.use_pallas, time_axis=ta, fuse_round=cfg.fuse_round)
     x_new = torch.cat([x_rows_new, x[:, T:]], dim=1)
 
     # write dX[i % m] = x^{i+1} - x^i after it
@@ -331,14 +351,19 @@ def _guarded_step(state: SolverState, static, cfg, eps_flat) -> SolverState:
 POLL_BYTES = 1
 
 
-def poll_finished(state: SolverState) -> bool:
+def poll_finished(state: SolverState, group=None) -> bool:
     """Whether every lane has finished: the solver loop's one host read.
 
     On a CUDA tensor the flag goes by a copy that does not block into
     pinned host memory, and the host waits on an event recorded after it:
     the only wait of the solve.  ``sample`` calls this once per iteration,
-    and nothing else on the solve path reads the device."""
+    and nothing else on the solve path reads the device.  With ``group``
+    (the lanes' data shards) the flag is first reduced over it, on the
+    device and in stream order, so every shard stops at the same iteration:
+    the slowest lane of the whole batch, as one unsharded batch would."""
     flag = state.finished.all()
+    if group is not None:
+        flag = comm.all_reduce_min(flag.to(torch.int32), group).bool()
     if flag.device.type != "cuda":
         return bool(flag)
     host = torch.empty((), dtype=torch.bool, pin_memory=True)
@@ -387,9 +412,20 @@ def lane_summary(state: SolverState) -> torch.Tensor:
          lane_residual(state).float().view(torch.int32)], dim=-1)
 
 
+def _axis_group(axis):
+    """The ambient mesh's process group over ``axis`` (None without a mesh
+    or an axis)."""
+    mesh = current_mesh()
+    if mesh is None or axis is None:
+        return None
+    from repro_torch.launch.mesh import axes_group
+
+    return axes_group(mesh, (axis,) if isinstance(axis, str) else axis)
+
+
 def sample(eps_fn: Callable, coeffs: SolverCoeffs, cfg: ParaTAAConfig, xi,
            x_init: Optional[torch.Tensor] = None, dtype=torch.float32,
-           t_init=None, tau_sq=None, iter_cap=None):
+           t_init=None, tau_sq=None, iter_cap=None, lane_axis=None):
     """Run every lane to convergence (or its iteration budget).
 
     eps_fn: (x (n, *shape), taus (n,)) -> eps (n, *shape), n = B * w
@@ -401,17 +437,23 @@ def sample(eps_fn: Callable, coeffs: SolverCoeffs, cfg: ParaTAAConfig, xi,
     iteration, so as many as the slowest lane's iterations).  The first
     poll comes after the first iteration, so a batch whose every lane
     starts finished (``iter_cap`` 0) costs one pass-through iteration.
+    lane_axis: the mesh axis (or axes) the lanes are a shard of (the
+    engine's data axis): each poll then reduces the finished flag over
+    that axis's group, so every shard iterates as long as the slowest
+    lane of the whole batch.
     """
     shape = tuple(xi.shape[2:])
     state = init_state(coeffs, cfg, xi, x_init=x_init, dtype=dtype,
                        t_init=t_init, tau_sq=tau_sq, iter_cap=iter_cap)
     static = _build_static(coeffs, cfg, xi.device)
     eps_flat = _flat_eps(eps_fn, shape)
+    group = _axis_group(lane_axis)
     polls = 0
     while True:
         state = _guarded_step(state, static, cfg, eps_flat)
         polls += 1
-        if poll_finished(state):
+        if (poll_finished(state) if group is None
+                else poll_finished(state, group)):
             break
     B = xi.shape[0]
     return (state.x.reshape((B, coeffs.T + 1) + shape),

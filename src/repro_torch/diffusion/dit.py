@@ -34,24 +34,34 @@ def dit_defs(cfg: ArchConfig) -> Dict:
     leading layer axis — the shapes of the JAX package's ``dit_defs``."""
     d, ff, H, hd, L = (cfg.d_model, cfg.d_ff, cfg.num_heads, cfg.head_dim,
                        cfg.num_layers)
+    qkv = ("layers", "embed", "heads", None)
     block = {
-        "ada": ParamSpec((L, d, 6 * d), "zeros"),
-        "wq": ParamSpec((L, d, H, hd), "lecun", d),
-        "wk": ParamSpec((L, d, H, hd), "lecun", d),
-        "wv": ParamSpec((L, d, H, hd), "lecun", d),
-        "wo": ParamSpec((L, H, hd, d), "lecun", H * hd),
-        "mlp": {"wi_gate": ParamSpec((L, d, ff), "lecun", d),
-                "wi_up": ParamSpec((L, d, ff), "lecun", d),
-                "wo": ParamSpec((L, ff, d), "lecun", ff)},
+        "ada": ParamSpec((L, d, 6 * d), "zeros",
+                         axes=("layers", "embed", "cond")),
+        "wq": ParamSpec((L, d, H, hd), "lecun", d, axes=qkv),
+        "wk": ParamSpec((L, d, H, hd), "lecun", d, axes=qkv),
+        "wv": ParamSpec((L, d, H, hd), "lecun", d, axes=qkv),
+        "wo": ParamSpec((L, H, hd, d), "lecun", H * hd,
+                        axes=("layers", "heads", None, "embed")),
+        "mlp": {"wi_gate": ParamSpec((L, d, ff), "lecun", d,
+                                     axes=("layers", "embed", "mlp")),
+                "wi_up": ParamSpec((L, d, ff), "lecun", d,
+                                   axes=("layers", "embed", "mlp")),
+                "wo": ParamSpec((L, ff, d), "lecun", ff,
+                                axes=("layers", "mlp", "embed"))},
     }
     return {
-        "in_proj": ParamSpec((cfg.latent_dim, d), "lecun", cfg.latent_dim),
-        "t_mlp1": ParamSpec((TEMB_DIM, d), "lecun", TEMB_DIM),
-        "t_mlp2": ParamSpec((d, d), "lecun", d),
-        "y_embed": ParamSpec((cfg.num_classes + 1, d), "normal"),
+        "in_proj": ParamSpec((cfg.latent_dim, d), "lecun", cfg.latent_dim,
+                             axes=(None, "embed")),
+        "t_mlp1": ParamSpec((TEMB_DIM, d), "lecun", TEMB_DIM,
+                            axes=(None, "embed")),
+        "t_mlp2": ParamSpec((d, d), "lecun", d, axes=(None, "embed")),
+        "y_embed": ParamSpec((cfg.num_classes + 1, d), "normal",
+                             axes=(None, "embed")),
         "blocks": block,
-        "final_ada": ParamSpec((d, 2 * d), "zeros"),
-        "out_proj": ParamSpec((d, cfg.latent_dim), "zeros"),
+        "final_ada": ParamSpec((d, 2 * d), "zeros", axes=("embed", "cond")),
+        "out_proj": ParamSpec((d, cfg.latent_dim), "zeros",
+                              axes=("embed", None)),
     }
 
 
@@ -153,10 +163,13 @@ def wrapper_defs(cfg: ArchConfig, latent_dim: int) -> Dict:
     d = cfg.d_model
     return {
         "backbone": build_defs(cfg),
-        "in_proj": ParamSpec((latent_dim, d), "lecun", latent_dim),
-        "t_mlp1": ParamSpec((TEMB_DIM, d), "lecun", TEMB_DIM),
-        "t_mlp2": ParamSpec((d, d), "lecun", d),
-        "out_proj": ParamSpec((d, latent_dim), "zeros"),
+        "in_proj": ParamSpec((latent_dim, d), "lecun", latent_dim,
+                             axes=(None, "embed")),
+        "t_mlp1": ParamSpec((TEMB_DIM, d), "lecun", TEMB_DIM,
+                            axes=(None, "embed")),
+        "t_mlp2": ParamSpec((d, d), "lecun", d, axes=(None, "embed")),
+        "out_proj": ParamSpec((d, latent_dim), "zeros",
+                              axes=("embed", None)),
     }
 
 

@@ -93,7 +93,18 @@ def _eye(m: int, like: torch.Tensor) -> torch.Tensor:
     return torch.eye(m, dtype=torch.float32, device=like.device)
 
 
-def taa_gram(dF, R, mask, *, use_pallas: Optional[bool] = None):
+# ``time_axis`` (the TAA functions below): the mesh axis the caller's solve
+# window shards over, accepted as the JAX package's ops accept it.  Its
+# replicate pins hold every cross-row reduction to the unsharded summation
+# order; here the solver hands these functions operands that are already
+# replicated over that axis (``repro_torch.core.parataa`` gathers the
+# window's eps rows before the update), so every time rank runs the same
+# round on the same bytes and the argument changes no value and adds no
+# collective.
+
+
+def taa_gram(dF, R, mask, *, use_pallas: Optional[bool] = None,
+             time_axis: Optional[str] = None):
     """Per-row Gram blocks G_t = F_t^T F_t, u_t = F_t^T R_t (masked) — the
     memory-bound first pass every Anderson variant shares."""
     if _use_kernel(dF, use_pallas):
@@ -102,7 +113,8 @@ def taa_gram(dF, R, mask, *, use_pallas: Optional[bool] = None):
 
 
 def taa_rowwise_gamma(dF, R, mask, *, lam: float = 1e-8,
-                      use_pallas: Optional[bool] = None):
+                      use_pallas: Optional[bool] = None,
+                      time_axis: Optional[str] = None):
     """Per-row TAA gammas via suffix-cumsum Grams (Theorem 3.2)."""
     G, u = taa_gram(dF, R, mask, use_pallas=use_pallas)
     m = dF.shape[-3]
@@ -112,7 +124,8 @@ def taa_rowwise_gamma(dF, R, mask, *, lam: float = 1e-8,
 
 
 def taa_apply(x, R, dX, dF, gamma, mask, *,
-              use_pallas: Optional[bool] = None):
+              use_pallas: Optional[bool] = None,
+              time_axis: Optional[str] = None):
     """Per-row history apply x_t + R_t - (dX_t + dF_t)^T gamma_t."""
     if _use_kernel(x, use_pallas):
         return _k.taa_apply(x, R, dX, dF, gamma, mask)
@@ -121,7 +134,8 @@ def taa_apply(x, R, dX, dF, gamma, mask, *,
 
 def taa_round_staged(x, R, dX, dF, mask, *, mode: str = "taa",
                      lam: float = 1e-8, safeguard_mask=None,
-                     use_pallas: Optional[bool] = None):
+                     use_pallas: Optional[bool] = None,
+                     time_axis: Optional[str] = None):
     """The round as three stages — Gram pass, (suffix) reduce + solve,
     apply pass — for taa and the aa/aa+ global reductions."""
     T, m = x.shape[-2], dF.shape[-3]
@@ -145,7 +159,8 @@ def taa_round_staged(x, R, dX, dF, mask, *, mode: str = "taa",
 
 
 def taa_round(x, R, dX, dF, mask, *, mode: str = "taa", lam: float = 1e-8,
-              safeguard_mask=None, use_pallas: Optional[bool] = None):
+              safeguard_mask=None, use_pallas: Optional[bool] = None,
+              time_axis: Optional[str] = None):
     """The whole Theorem-3.2 round as ONE dispatch.  On the card that is one
     ``taa_round`` kernel launch; on the CPU (or with ``use_pallas=False``)
     it is the staged composition of the plain versions

@@ -35,8 +35,9 @@ packages).  The ParaTAA cell costs one solver iteration of DiT-XL at the
 reference's geometry.  Bytes are the eager program's, op by op (the
 reference's are XLA's after fusion).  The roofline's compute term takes
 bf16 products at 989 TFLOP/s and float32 ones at 67 (``compute_s``) or,
-with TF32 on, 495 (``compute_s_tf32``); there is no collective on one
-card.  The reference's ``lower_s``/``compile_s`` are null (nothing is
+with TF32 on, 495 (``compute_s_tf32``).  The collective column is what
+the cell's run issued through ``repro_torch.comm``
+(``roofline.analysis.collective_bytes``): 0 on one rank without a mesh.  The reference's ``lower_s``/``compile_s`` are null (nothing is
 compiled); ``count_s`` is the seconds of the counted runs.
 """
 from __future__ import annotations
@@ -51,6 +52,7 @@ from typing import Union
 
 import torch
 
+from repro_torch import comm
 from repro_torch.configs.base import SHAPES, ShapeConfig
 from repro_torch.configs.registry import ASSIGNED, get_arch, get_shape
 from repro_torch.launch import steps as S
@@ -276,14 +278,18 @@ def cell_cost(cfg, shape: ShapeConfig, device=META):
     return const + unit * n_units, n_units
 
 
-def _roofline(cost: Cost) -> dict:
-    terms = RA.roofline_terms(cost.flops, cost.bytes, 0.0,
+def _roofline(cost: Cost, coll: dict) -> dict:
+    """The record's roofline fields; ``coll`` the collective bytes by kind
+    the cell issued (``RA.collective_bytes``)."""
+    coll_bytes = float(sum(coll.values()))
+    terms = RA.roofline_terms(cost.flops, cost.bytes, coll_bytes,
                               flops_by_dtype=cost.flops_by_dtype)
-    tf32 = RA.roofline_terms(cost.flops, cost.bytes, 0.0,
+    tf32 = RA.roofline_terms(cost.flops, cost.bytes, coll_bytes,
                              flops_by_dtype=cost.flops_by_dtype, tf32=True)
     return dict(flops_per_chip=cost.flops, bytes_per_chip=cost.bytes,
                 flops_by_dtype=cost.flops_by_dtype,
-                collective_bytes_per_chip=0.0, collective_breakdown={},
+                collective_bytes_per_chip=coll_bytes,
+                collective_breakdown={k: v for k, v in coll.items() if v},
                 compute_s=terms.compute_s, compute_s_tf32=tf32.compute_s,
                 memory_s=terms.memory_s, collective_s=terms.collective_s,
                 dominant=terms.dominant, step_time_lb_s=terms.step_time_lb)
@@ -302,6 +308,7 @@ def run_cell(arch_name: str, shape: Union[str, ShapeConfig], *,
         return {**rec, "status": "skipped", "reason": reason}
     rec.update(chips=1, status="error")
     t0 = time.monotonic()
+    comm.reset()
     # the peak of a train step is reached by its second microbatch (the
     # float32 grad sums live from then on): two stand for all of them,
     # with the whole batch's bytes among the arguments
@@ -319,7 +326,8 @@ def run_cell(arch_name: str, shape: Union[str, ShapeConfig], *,
     rec.update(
         status="ok", lower_s=None, compile_s=None,
         count_s=time.monotonic() - t0, n_units=n_units, **mem,
-        fits_hbm=bool(mem["peak_bytes"] < RA.HBM_PER_CHIP), **_roofline(cost),
+        fits_hbm=bool(mem["peak_bytes"] < RA.HBM_PER_CHIP),
+        **_roofline(cost, RA.collective_bytes()),
         model_flops_global=mf,
         model_flops_ratio=mf / cost.flops if cost.flops else None)
     if verbose:
@@ -331,7 +339,8 @@ def _print(rec: dict) -> None:
     print(f"[single] {rec['arch']} x {rec['shape']}: counted in "
           f"{rec['count_s']:.1f}s, compute {rec['compute_s'] * 1e3:.2f}ms "
           f"(TF32 {rec['compute_s_tf32'] * 1e3:.2f}ms) / mem "
-          f"{rec['memory_s'] * 1e3:.2f}ms / coll 0 -> {rec['dominant']}-"
+          f"{rec['memory_s'] * 1e3:.2f}ms / coll "
+          f"{rec['collective_s'] * 1e3:.2f}ms -> {rec['dominant']}-"
           f"bound; peak {rec['peak_bytes'] / 1e9:.2f} GB (fits="
           f"{rec['fits_hbm']}) mf-ratio="
           f"{rec['model_flops_ratio'] and round(rec['model_flops_ratio'], 3)}")
@@ -364,6 +373,7 @@ def run_parataa_cell(*, T: int = 100, window: int = 64, n_samples: int = 16,
            "chips": 1, "status": "error", "T": T, "window": window,
            "n_samples": n_samples, "placement": "one device"}
     t0 = time.monotonic()
+    comm.reset()
     coeffs = ddim_coeffs(T)
     spec = get_sampler("taa", order_k=8, history_m=history_m, window=window,
                        s_max=2 * T)
@@ -392,7 +402,7 @@ def run_parataa_cell(*, T: int = 100, window: int = 64, n_samples: int = 16,
         status="ok", compile_s=None, count_s=time.monotonic() - t0,
         argument_bytes=arg_bytes, temp_bytes=peak - arg_bytes,
         peak_bytes=peak, fits_hbm=bool(peak < RA.HBM_PER_CHIP),
-        **_roofline(cost), model_flops_global=mf,
+        **_roofline(cost, RA.collective_bytes()), model_flops_global=mf,
         model_flops_ratio=mf / cost.flops if cost.flops else None,
         note="per-ITERATION cost; end-to-end = iters x this")
     if verbose:

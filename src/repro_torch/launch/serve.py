@@ -36,10 +36,30 @@ warm-start cache, ``--trace-out`` a Chrome-trace JSON
         --device cpu --requests 6 --steps-T 8 --chunk-iters 2 \
         --batch-size 2 --loose-tau-frac 0.5 --refine --cache \
         --trace-out trace.json
+
+``--mesh NAME`` (with ``--data-parallel``/``--model-parallel``/
+``--time-parallel`` axis overrides) places every engine on a registered
+rank mesh (``repro_torch.launch.mesh``): one process per rank under
+``torchrun``, NCCL on the card and gloo with ``--device cpu``.  The
+request axis shards over ``data``, a ``*-time`` mesh's ``time`` axis
+shards each solve window, and the DiT runs replicated over ``model``;
+results equal the run without ``--mesh``.  Rank 0 decides the serving
+loop's rounds and is the only rank that prints.  ``--donate`` is accepted
+and changes nothing (eager PyTorch has no compiled program to donate
+buffers to).  ``--chaos-drop N --chaos-round R`` (with ``--serve-async
+--chunk-iters K``) serves through the ``ResilientServingLoop``, which
+loses N ranks at round R and rebuilds the engines on the survivors:
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.serve --device cpu --serve-async --smoke \
+        --requests 8 --steps-T 8 --batch-size 4 --chunk-iters 2 \
+        --mesh debug --data-parallel 4 --model-parallel 1 --chaos-drop 2
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import time
 from pathlib import Path
 
@@ -51,13 +71,17 @@ from repro_torch.core import ddim_coeffs, ddpm_coeffs
 from repro_torch.device import resolve_device
 from repro_torch.diffusion.convert import dit_init
 from repro_torch.diffusion.dit import dit_apply
+from repro_torch import comm
 from repro_torch.launch.backend import apply_backend_tune, read_settings
+from repro_torch.launch.mesh import init_distributed, make_mesh, mesh_names
 from repro_torch.obs import Observability
 from repro_torch.runtime import StragglerMitigator
-from repro_torch.sampling import SampleRequest, SamplingEngine, get_sampler
+from repro_torch.sampling import (Placement, SampleRequest, SamplingEngine,
+                                  get_sampler)
 from repro_torch.serving import (Batcher, BatchingPolicy, EngineKey,
-                                 EngineRegistry, RefinePlanner, RefinePolicy,
-                                 RequestQueue, ServingLoop)
+                                 EngineRegistry, FaultInjector,
+                                 RefinePlanner, RefinePolicy, RequestQueue,
+                                 ResilientServingLoop, ServingLoop)
 
 
 def make_eps_apply(cfg):
@@ -67,11 +91,34 @@ def make_eps_apply(cfg):
     return eps_apply
 
 
+def make_placement(mesh_name: str = "none", *, data_parallel: int = 0,
+                   model_parallel: int = 0, time_parallel: int = 0,
+                   donate: bool = False, device=None) -> Placement:
+    """Serving CLI placement flags -> a Placement.  A mesh starts the
+    process group for ``device`` (nccl for cuda, gloo for cpu) and must
+    use every rank of the world."""
+    if mesh_name == "none":
+        return Placement.host()
+    device = resolve_device(device)
+    init_distributed(device)
+    mesh = make_mesh(mesh_name, data_parallel=data_parallel or None,
+                     model_parallel=model_parallel or None,
+                     time_parallel=time_parallel or None,
+                     device_type=device.type)
+    if mesh.mesh.numel() != comm.world():
+        raise SystemExit(
+            f"--mesh {mesh_name} has {mesh.mesh.numel()} ranks but the "
+            f"world has {comm.world()}: launch with torchrun "
+            f"--nproc-per-node {mesh.mesh.numel()}")
+    return Placement.for_mesh(mesh, donate=donate)
+
+
 def make_engine(params, cfg, coeffs, spec, *, num_tokens=16, device=None,
-                noise_fn=None) -> SamplingEngine:
+                noise_fn=None, placement: Placement = None) -> SamplingEngine:
     return SamplingEngine(make_eps_apply(cfg), params, coeffs, spec,
                           sample_shape=(num_tokens, cfg.latent_dim),
-                          device=device, noise_fn=noise_fn)
+                          device=device, noise_fn=noise_fn,
+                          placement=placement)
 
 
 def serve_batch(engine: SamplingEngine, requests, *, batch_size=None):
@@ -111,13 +158,16 @@ def resolve_spec(args, solver: str):
                        fuse_round=args.fuse_round)
 
 
-def make_engine_factory(cfg, params, args, device, *, num_tokens=16):
-    """EngineKey -> SamplingEngine factory: one shared denoiser and device,
-    per-key step count and solver (the registry caches the instances)."""
-    def factory(key: EngineKey):
+def make_engine_factory(cfg, params, args, device, *, num_tokens=16,
+                        placement: Placement = None):
+    """EngineKey -> SamplingEngine factory: one shared denoiser, device and
+    placement, per-key step count and solver (the registry caches the
+    instances)."""
+    def factory(key: EngineKey, plc: Placement = placement):
         return make_engine(params, cfg, resolve_coeffs(args, key.T),
                            resolve_spec(args, key.solver),
-                           num_tokens=num_tokens, device=device)
+                           num_tokens=num_tokens, device=device,
+                           placement=plc)
     return factory
 
 
@@ -158,11 +208,14 @@ def simulated_request(rng, cfg, args, *,
                          seed=int(rng.integers(1 << 30)), **kw)
 
 
-def serve_async(args, cfg, params, device):
+def serve_async(args, cfg, params, device, placement: Placement = None):
     """Drive the ``repro_torch.serving`` stack with a simulated request
-    stream; returns (stacked x0 latents, per-request stats)."""
+    stream; returns (stacked x0 latents, per-request stats) on rank 0
+    (every other rank follows rank 0's rounds and returns (None, []))."""
     keys = mixed_engine_keys(args)
-    registry = EngineRegistry(make_engine_factory(cfg, params, args, device))
+    factory = make_engine_factory(cfg, params, args, device,
+                                  placement=placement)
+    registry = EngineRegistry(factory)
     policy = BatchingPolicy(max_batch=args.batch_size or 8,
                             max_wait_s=args.max_wait_ms / 1e3)
     # ONE observability bundle spans queue + loop + registry (engines,
@@ -182,21 +235,40 @@ def serve_async(args, cfg, params, device):
         validate=registry.validate_submit if args.cache else None,
         warm_start=registry.warm_start_for if args.cache else None,
         obs=obs)
-    loop = ServingLoop(registry, queue, Batcher(policy, metrics=obs.metrics),
-                       depth=args.async_depth, chunk_iters=args.chunk_iters,
-                       refiner=refiner, cache=args.cache, obs=obs)
+    batcher = Batcher(policy, metrics=obs.metrics)
+    if args.chaos_drop:
+        if not args.chunk_iters:
+            raise SystemExit("--chaos-drop requires --chunk-iters > 0 "
+                             "(recovery splices fetched LaneBank state "
+                             "back into live stepwise banks)")
+        # the supervisor drops --chaos-drop ranks at round --chaos-round,
+        # rebuilds every engine on the surviving sub-mesh (through the
+        # per-placement factory) and resumes mid-solve
+        loop = ResilientServingLoop(
+            registry, queue, batcher, engine_factory=factory,
+            placement=placement,
+            injector=FaultInjector({args.chaos_round: args.chaos_drop}),
+            depth=args.async_depth, chunk_iters=args.chunk_iters,
+            refiner=refiner, cache=args.cache, obs=obs)
+    else:
+        loop = ServingLoop(registry, queue, batcher, depth=args.async_depth,
+                           chunk_iters=args.chunk_iters, refiner=refiner,
+                           cache=args.cache, obs=obs)
     for key in keys:  # first solves ahead of traffic: p95 is not a warmup
         engine = registry.get(key)
         registry.warmup(key, slots=loop.batcher.slots_for(engine),
                         chunk_iters=args.chunk_iters)
-        print(f"warmed {key.describe()}: {engine.device}")
+        print(f"warmed {key.describe()}: {engine.device}, "
+              f"{engine.placement.describe()}")
 
+    leader = loop.control.leader
     rng = np.random.default_rng(args.seed)
     gaps = simulate_arrivals(rng, args.requests, args.arrival_rate)
     tickets = []
     loop.start()
     try:
-        for gap in gaps:
+        # only rank 0 holds the queue: the other ranks follow its rounds
+        for gap in (gaps if leader else []):
             if gap:
                 time.sleep(float(gap))
             key = keys[int(rng.integers(len(keys)))]
@@ -207,6 +279,10 @@ def serve_async(args, cfg, params, device):
         results = [t.result(timeout=600) for t in tickets]
     finally:
         loop.stop()
+    # every rank reports: a report may poll, and a poll all-gathers
+    reports = loop.bank_reports() if args.chunk_iters else {}
+    if not leader:
+        return None, []
 
     latencies = np.asarray([t.latency_s for t in tickets])
     span = max(t.completed_time for t in tickets) \
@@ -226,7 +302,7 @@ def serve_async(args, cfg, params, device):
               f"iters={res.iters:3d} latency={ticket.latency_s:.2f}s"
               f"{early}{two_tier}")
     if args.chunk_iters:
-        for key, report in sorted(loop.bank_reports().items()):
+        for key, report in sorted(reports.items()):
             rounds = max(report["blocking_polls"], 1)  # one poll per round
             print(f"{key.describe()}: {report['completed']} served over "
                   f"{report['refills']} refill(s), device iters "
@@ -252,6 +328,21 @@ def serve_async(args, cfg, params, device):
           f"p95 {np.percentile(latencies, 95):.2f}s; "
           f"mean NFE/request {np.mean([r.nfe for r in results]):.0f}; "
           f"{n_early} early-exit(s); loop stats {loop.stats}")
+    if args.chaos_drop:
+        res = loop.resilience
+        unresolved = [t for t in tickets if not t.done()]
+        if unresolved:
+            raise SystemExit(f"{len(unresolved)} ticket(s) unresolved "
+                             f"after the chaos drain")
+        print(f"chaos: lost {res['device_losses']} device(s) at round "
+              f"{args.chaos_round}, {res['rebuilds']} rebuild(s) onto "
+              f"{len(loop._survivors())} survivor(s) in "
+              f"{res['rebuild_wall_s']:.2f}s; {res['recovered_lanes']} "
+              f"lane(s) recovered mid-solve (+{res['recovery_nfe']} "
+              f"recovery NFE), {res['resubmitted_lanes']} resubmitted, "
+              f"{res['draft_fallbacks']} draft fallback(s), "
+              f"{res['retries']} in-place retries — "
+              f"{len(tickets)}/{len(tickets)} tickets resolved")
     if args.refine:
         two_tier = [t for t in tickets if t.refines]
         unresolved = [t for t in tickets
@@ -289,7 +380,9 @@ def report_dispatches(engine: SamplingEngine, *, out=print):
     """One line per dispatch of the last ``run_batch``."""
     for i, d in enumerate(engine.last_dispatches):
         out(f"dispatch {i}: {d['requests']}/{d['slots']} request slots "
-            f"({d['slot_utilization']:.0%}) on {engine.device}, "
+            f"({d['slot_utilization']:.0%}) on {engine.device} x "
+            f"{d['devices']} rank(s) [data={d['data_shards']} x "
+            f"model={d['model_shards']} x time={d['time_shards']}], "
             f"device iters {d['device_iters']}, "
             f"update launches {d['update_launches']}, "
             f"wall {d['wall_s']:.2f}s")
@@ -324,6 +417,33 @@ def main(argv=None):
                    help="TF32 for float32 matmuls and convolutions on a "
                         "CUDA device (launch/backend.py), set before the "
                         "first model call; a no-op without one")
+    p.add_argument("--mesh", default="none", choices=["none"] + mesh_names(),
+                   help="registered rank mesh to place the engines on "
+                        "(none = one device); launch its ranks with "
+                        "torchrun --nproc-per-node N (nccl on cuda, gloo "
+                        "with --device cpu)")
+    p.add_argument("--data-parallel", type=int, default=0,
+                   help="override the mesh's `data` axis size "
+                        "(request-axis shards; 0 = registry default)")
+    p.add_argument("--model-parallel", type=int, default=0,
+                   help="override the mesh's `model` axis size (the DiT "
+                        "runs replicated over it; 0 = registry default)")
+    p.add_argument("--time-parallel", type=int, default=0,
+                   help="override a *-time mesh's `time` axis size (solve-"
+                        "window shards within one request, bit for bit "
+                        "the unsharded window; 0 = registry default)")
+    p.add_argument("--donate", action="store_true",
+                   help="accepted for the JAX package's flag; eager "
+                        "PyTorch has no compiled program to donate "
+                        "buffers to, so it changes nothing")
+    p.add_argument("--chaos-drop", type=int, default=0,
+                   help="chaos test (requires --serve-async --chunk-iters):"
+                        " drop this many ranks from the serving mesh "
+                        "mid-drain and let the elastic supervisor rebuild "
+                        "the engines on the survivors; every ticket still "
+                        "resolves, bit for bit (0 = no fault injection)")
+    p.add_argument("--chaos-round", type=int, default=3,
+                   help="supervision round at which --chaos-drop fires")
     p.add_argument("--serve-async", action="store_true",
                    help="serve a simulated request stream through the "
                         "repro_torch.serving continuous-batching layer "
@@ -379,6 +499,19 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
+    placement = make_placement(args.mesh, data_parallel=args.data_parallel,
+                               model_parallel=args.model_parallel,
+                               time_parallel=args.time_parallel,
+                               donate=args.donate, device=device)
+    # only rank 0 prints
+    quiet = contextlib.redirect_stdout(io.StringIO()) if comm.rank() \
+        else contextlib.nullcontext()
+    with quiet:
+        return _serve(args, device, placement)
+
+
+def _serve(args, device, placement: Placement):
+    print(f"placement: {placement.describe()}")
     if apply_backend_tune(["--backend-tune"] if args.backend_tune else []):
         print(f"backend tune: {read_settings()}")
     cfg = get_arch(args.arch)
@@ -392,11 +525,14 @@ def main(argv=None):
             params = tree["params"]
             print(f"restored checkpoint step {tree['step']}")
     if args.serve_async:
-        return serve_async(args, cfg, params, device)
+        return serve_async(args, cfg, params, device, placement)
+    if args.chaos_drop:
+        raise SystemExit("--chaos-drop requires --serve-async "
+                         "--chunk-iters > 0")
 
     coeffs = resolve_coeffs(args, args.steps_T)
     engine = make_engine(params, cfg, coeffs, resolve_spec(args, args.solver),
-                         device=device)
+                         device=device, placement=placement)
 
     rng = np.random.default_rng(args.seed)
     requests = [SampleRequest(label=int(rng.integers(0, cfg.num_classes)),

@@ -1,10 +1,13 @@
 """The step functions of the drivers (train / prefill / decode / ParaTAA
 serve), as plain functions on trees of tensors, and their inputs and state
 as tensors on ``meta`` (shapes and dtypes only, no data) for the dry-run —
-the JAX package's ``repro.launch.steps`` without its meshes (its
-``input_specs``, ``abstract_cache`` and ``abstract_model_state`` mesh-free,
-in the reference's ``PARAM_DTYPE``, each leaf in its own dtype where its
-spec names one).
+the JAX package's ``repro.launch.steps`` (its ``input_specs``,
+``abstract_cache`` and ``abstract_model_state``, in the reference's
+``PARAM_DTYPE``, each leaf in its own dtype where its spec names one).
+On a mesh, the reference's shardings become PartitionSpec entries
+(``input_partition``, ``cache_partition``, ``_cache_spec_for``, by its
+rules and divisibility) and ``input_specs(mesh=)`` returns the inputs as
+``DTensor``s with those placements on the ``DeviceMesh``.
 
 A train step updates the params and optimizer state in place (the
 counterpart of the reference's donated buffers) and returns its metrics as
@@ -21,9 +24,10 @@ from repro_torch.device import constant, to_device
 from repro_torch.diffusion import dit as dit_mod
 from repro_torch.diffusion.schedules import make_schedule
 from repro_torch.models import backbone
-from repro_torch.models.pdefs import leaf_dtype, map_defs
+from repro_torch.models.pdefs import (dtensor_placements, leaf_dtype,
+                                      map_defs, resolve_axis)
 from repro_torch.optim import AdamWConfig, adamw_update, lr_schedule
-from repro_torch.tree import leaves, map_tree, unflatten
+from repro_torch.tree import flatten_with_paths, leaves, map_tree, unflatten
 
 #: the params' dtype of the dry-run's cells (the reference's PARAM_DTYPE)
 PARAM_DTYPE = torch.bfloat16
@@ -152,30 +156,116 @@ def make_parataa_serve_step(cfg: ArchConfig, solver_cfg, coeffs):
 # ---------------------------------------------------------------------------
 
 
-def input_specs(cfg: ArchConfig, shape: ShapeConfig, device=META):
-    """The model inputs of this (arch, shape) cell as zeros on ``device``:
-    a DiT training batch of 256 latent tokens, token ids (float embeds for
-    a stub frontend) for train and prefill, one token for decode."""
+def _inputs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """name -> (shape, dtype) of the cell's model inputs."""
     b, s = shape.global_batch, shape.seq_len
-
-    def zeros(shp, dt):
-        return torch.zeros(shp, dtype=dt, device=device)
-
     if cfg.is_diffusion:
         n, ld = 256, cfg.latent_dim
-        return {"latents": zeros((b, n, ld), PARAM_DTYPE),
-                "labels": zeros((b,), torch.int32),
-                "noise": zeros((b, n, ld), PARAM_DTYPE),
-                "t": zeros((b,), torch.int32)}
+        return {"latents": ((b, n, ld), PARAM_DTYPE),
+                "labels": ((b,), torch.int32),
+                "noise": ((b, n, ld), PARAM_DTYPE),
+                "t": ((b,), torch.int32)}
+    embeds = cfg.frontend == "embed"
     if shape.kind in ("train", "prefill"):
-        inputs = zeros((b, s, cfg.d_model), PARAM_DTYPE) \
-            if cfg.frontend == "embed" else zeros((b, s), torch.int32)
+        inputs = ((b, s, cfg.d_model), PARAM_DTYPE) if embeds \
+            else ((b, s), torch.int32)
         if shape.kind == "train":
-            return {"inputs": inputs, "labels": zeros((b, s), torch.int32)}
+            return {"inputs": inputs, "labels": ((b, s), torch.int32)}
         return {"inputs": inputs}
-    token = zeros((b, 1, cfg.d_model), PARAM_DTYPE) \
-        if cfg.frontend == "embed" else zeros((b, 1), torch.int32)
-    return {"token": token}
+    return {"token": ((b, 1, cfg.d_model), PARAM_DTYPE) if embeds
+            else ((b, 1), torch.int32)}
+
+
+def input_partition(cfg: ArchConfig, shape: ShapeConfig, mesh) -> dict:
+    """name -> PartitionSpec entries of each input on ``mesh``: the batch
+    dim over the data-parallel axes (the "embed" rule's fsdp axes, with
+    its divisibility fallback), every other dim replicated."""
+    ba = resolve_axis("embed", shape.global_batch, mesh)
+    return {k: (ba,) + (None,) * (len(shp) - 1)
+            for k, (shp, _) in _inputs(cfg, shape).items()}
+
+
+def _sharded_zeros(shp, dtype, device, mesh, spec):
+    """A DTensor of global shape ``shp`` with ``spec``'s placements on
+    ``mesh``, this rank's block zeros on ``device``."""
+    from torch.distributed.tensor import DTensor
+
+    local = list(shp)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    for dim, entry in enumerate(spec):
+        for axis in ((entry,) if isinstance(entry, str) else entry or ()):
+            local[dim] //= int(sizes[axis])
+    block = torch.zeros(local, dtype=dtype, device=device)
+    stride = torch.empty(shp, device=META).stride()
+    return DTensor.from_local(block, mesh, dtensor_placements(spec, mesh),
+                              run_check=False, shape=torch.Size(shp),
+                              stride=stride)
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig, device=META,
+                mesh=None):
+    """The model inputs of this (arch, shape) cell as zeros on ``device``:
+    a DiT training batch of 256 latent tokens, token ids (float embeds for
+    a stub frontend) for train and prefill, one token for decode.  With a
+    ``DeviceMesh``, each is a ``DTensor`` placed as :func:`input_partition`
+    says (this rank's block of zeros)."""
+    inputs = _inputs(cfg, shape)
+    if mesh is None:
+        return {k: torch.zeros(shp, dtype=dt, device=device)
+                for k, (shp, dt) in inputs.items()}
+    specs = input_partition(cfg, shape, mesh)
+    return {k: _sharded_zeros(shp, dt, device, mesh, specs[k])
+            for k, (shp, dt) in inputs.items()}
+
+
+def _cache_spec_for(path_str: str, shape, mesh) -> tuple:
+    """PartitionSpec entries for a cache leaf, by name and divisibility
+    (the reference's rules)."""
+    def ax(logical, dim):
+        return resolve_axis(logical, dim, mesh)
+
+    if path_str.endswith("index"):
+        return ()
+    ba = ax("embed", shape[0])  # fsdp axes for the batch dim
+    if "conv" in path_str:
+        return (ba, None, ax("inner", shape[2]))
+    if path_str.endswith("state") and len(shape) == 4:  # mamba (B,H,P,N)
+        return (ba, ax("ssm_heads", shape[1]), None, None)
+    if path_str.endswith("state"):  # rg-lru (B, d)
+        return (ba, ax("inner", shape[1]))
+    if path_str.endswith("k") or path_str.endswith("v"):  # attn (B,C,KV,D)
+        kv_ax = ax("kv_heads", shape[2])
+        if kv_ax is not None:
+            return (ba, None, kv_ax, None)
+        # context-parallel fallback: shard the sequence dim of the cache
+        return (ba, ax("heads", shape[1]), None, None)
+    if path_str.endswith("scale"):  # int8 kv scales (B, C, KV)
+        kv_ax = ax("kv_heads", shape[2])
+        if kv_ax is not None:
+            return (ba, None, kv_ax)
+        return (ba, ax("heads", shape[1]), None)
+    return (None,) * len(shape)
+
+
+def cache_partition(cfg: ArchConfig, shape: ShapeConfig, mesh,
+                    dtype=PARAM_DTYPE) -> list:
+    """(path, PartitionSpec entries) of every leaf of the cell's cache on
+    ``mesh``: stacked caches (homogeneous layers, a hybrid's period
+    groups) keep their leading stack dim replicated."""
+    out = []
+    cache = abstract_cache(cfg, shape, dtype=dtype)
+    for path, leaf in flatten_with_paths(cache):
+        pstr = "/".join(map(str, path))
+        shp = tuple(leaf.shape)
+        stacked = (not cfg.is_hybrid) or ("periods" in pstr)
+        if "index" in pstr:
+            spec = (None,) * len(shp)
+        elif stacked:
+            spec = (None,) + _cache_spec_for(pstr, shp[1:], mesh)
+        else:
+            spec = _cache_spec_for(pstr, shp, mesh)
+        out.append((path, spec))
+    return out
 
 
 def abstract_cache(cfg: ArchConfig, shape: ShapeConfig, device=META,

@@ -39,16 +39,20 @@ KV_BLOCK = 1024
 
 def attention_def(cfg: ArchConfig):
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    # logical axes: heads shard over `model` under the heads TP strategy
+    hx = "heads" if cfg.tp_strategy == "heads" else None
+    kx = "kv_heads" if cfg.tp_strategy == "heads" else None
     defs = {
-        "wq": ParamSpec((d, H, hd), "lecun", d),
-        "wk": ParamSpec((d, KV, hd), "lecun", d),
-        "wv": ParamSpec((d, KV, hd), "lecun", d),
-        "wo": ParamSpec((H, hd, d), "lecun", H * hd),
+        "wq": ParamSpec((d, H, hd), "lecun", d, axes=("embed", hx, None)),
+        "wk": ParamSpec((d, KV, hd), "lecun", d, axes=("embed", kx, None)),
+        "wv": ParamSpec((d, KV, hd), "lecun", d, axes=("embed", kx, None)),
+        "wo": ParamSpec((H, hd, d), "lecun", H * hd,
+                        axes=(hx, None, "embed")),
     }
     if cfg.qkv_bias:
-        defs["bq"] = ParamSpec((H, hd), "zeros")
-        defs["bk"] = ParamSpec((KV, hd), "zeros")
-        defs["bv"] = ParamSpec((KV, hd), "zeros")
+        defs["bq"] = ParamSpec((H, hd), "zeros", axes=(hx, None))
+        defs["bk"] = ParamSpec((KV, hd), "zeros", axes=(kx, None))
+        defs["bv"] = ParamSpec((KV, hd), "zeros", axes=(kx, None))
     if cfg.qk_norm:
         defs["q_norm"] = rmsnorm_def(hd)
         defs["k_norm"] = rmsnorm_def(hd)

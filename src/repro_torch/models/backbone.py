@@ -73,7 +73,7 @@ def build_defs(cfg: ArchConfig):
     d = cfg.d_model
     defs = {
         "embed": ParamSpec((cfg.vocab_size, d), "normal",
-                           scale=1.0 / math.sqrt(d)),
+                           scale=1.0 / math.sqrt(d), axes=("vocab", "embed")),
         "final_norm": rmsnorm_def(d),
     }
     if cfg.is_hybrid:
@@ -86,7 +86,8 @@ def build_defs(cfg: ArchConfig):
         defs["layers"] = stack_defs(_layer_def(cfg, cfg.layer_kinds()[0]),
                                     cfg.num_layers)
     if not cfg.tie_embeddings:
-        defs["lm_head"] = ParamSpec((d, cfg.vocab_size), "lecun", d)
+        defs["lm_head"] = ParamSpec((d, cfg.vocab_size), "lecun", d,
+                                    axes=("embed", "vocab"))
     return defs
 
 

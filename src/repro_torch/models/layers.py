@@ -13,7 +13,7 @@ from repro_torch.models.pdefs import ParamSpec
 
 
 def rmsnorm_def(d: int):
-    return {"scale": ParamSpec((d,), "ones")}
+    return {"scale": ParamSpec((d,), "ones", axes=("norm",))}
 
 
 def rmsnorm(params, x, eps: float = 1e-6):
@@ -46,9 +46,11 @@ def act_fn(name: str):
 
 def mlp_def(d: int, ff: int):
     """Gated MLP (SwiGLU / GeGLU)."""
-    return {"wi_gate": ParamSpec((d, ff), "lecun", d),
-            "wi_up": ParamSpec((d, ff), "lecun", d),
-            "wo": ParamSpec((ff, d), "lecun", ff)}
+    return {"wi_gate": ParamSpec((d, ff), "lecun", d,
+                                  axes=("embed", "mlp")),
+            "wi_up": ParamSpec((d, ff), "lecun", d,
+                                axes=("embed", "mlp")),
+            "wo": ParamSpec((ff, d), "lecun", ff, axes=("mlp", "embed"))}
 
 
 def mlp(params, x, act: str = "silu"):

@@ -31,19 +31,20 @@ def mamba_def(cfg: ArchConfig):
     h, w = cfg.ssm_nheads, cfg.ssm_conv_width
     f32 = torch.float32
     return {
-        "in_x": ParamSpec((d, din), "lecun", d),
-        "in_z": ParamSpec((d, din), "lecun", d),
-        "in_B": ParamSpec((d, gn), "lecun", d),
-        "in_C": ParamSpec((d, gn), "lecun", d),
-        "in_dt": ParamSpec((d, h), "lecun", d),
-        "conv_x": ParamSpec((w, din), "lecun", w),
-        "conv_B": ParamSpec((w, gn), "lecun", w),
-        "conv_C": ParamSpec((w, gn), "lecun", w),
-        "A_log": ParamSpec((h,), "zeros", dtype=f32),
-        "dt_bias": ParamSpec((h,), "zeros", dtype=f32),
-        "D": ParamSpec((h,), "ones", dtype=f32),
+        "in_x": ParamSpec((d, din), "lecun", d, axes=("embed", "inner")),
+        "in_z": ParamSpec((d, din), "lecun", d, axes=("embed", "inner")),
+        "in_B": ParamSpec((d, gn), "lecun", d, axes=("embed", None)),
+        "in_C": ParamSpec((d, gn), "lecun", d, axes=("embed", None)),
+        "in_dt": ParamSpec((d, h), "lecun", d, axes=("embed", "ssm_heads")),
+        "conv_x": ParamSpec((w, din), "lecun", w, axes=("conv", "inner")),
+        "conv_B": ParamSpec((w, gn), "lecun", w, axes=("conv", None)),
+        "conv_C": ParamSpec((w, gn), "lecun", w, axes=("conv", None)),
+        "A_log": ParamSpec((h,), "zeros", dtype=f32, axes=("ssm_heads",)),
+        "dt_bias": ParamSpec((h,), "zeros", dtype=f32,
+                             axes=("ssm_heads",)),
+        "D": ParamSpec((h,), "ones", dtype=f32, axes=("ssm_heads",)),
         "norm": rmsnorm_def(din),
-        "out": ParamSpec((din, d), "lecun", din),
+        "out": ParamSpec((din, d), "lecun", din, axes=("inner", "embed")),
     }
 
 

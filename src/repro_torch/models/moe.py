@@ -1,7 +1,6 @@
-"""Mixture-of-Experts layer, the local path: top-k routing with sort-based
-capacity dispatch (the JAX package's ``repro.models.moe`` without its
-expert-parallel ``shard_map`` branch, which comes with the placement
-slice).
+"""Mixture-of-Experts layer: top-k routing with sort-based capacity
+dispatch (the JAX package's ``repro.models.moe``), on one device or
+expert-parallel over a mesh's ``model`` axis.
 
 Slots (token, k) are sorted by expert (a stable sort) and the first
 ``capacity`` of each expert are copied into an (E, C, d) buffer; the
@@ -16,6 +15,14 @@ Unlike the reference's scatter-add, the combine puts the slots back in
 (token, k) order and sums over k: no atomics, the same bits on every call.
 The capacity is computed on the host from shapes; nothing reads the
 device.
+
+Expert parallelism (:func:`_moe_shard_map`, the reference's shard_map
+branch): under an ambient mesh with a ``model`` axis of more than one rank
+whose size divides the padded expert count, each rank holds its data
+shard's tokens and routes them to the ``ep / model`` experts it owns,
+dropping past a per-rank capacity ``c_loc``; one all-reduce over the
+``model`` group (the reference's ``psum``) sums the partial outputs, and
+the aux loss is averaged over the data axes.
 """
 from __future__ import annotations
 
@@ -46,10 +53,14 @@ def moe_def(cfg: ArchConfig):
     d, ff = cfg.d_model, cfg.moe_d_ff
     ep = padded_experts(cfg)
     defs = {
-        "router": ParamSpec((d, ep), "lecun", d, dtype=torch.float32),
-        "we_gate": ParamSpec((ep, d, ff), "lecun", d),
-        "we_up": ParamSpec((ep, d, ff), "lecun", d),
-        "we_down": ParamSpec((ep, ff, d), "lecun", ff),
+        "router": ParamSpec((d, ep), "lecun", d, dtype=torch.float32,
+                            axes=("embed", None)),
+        "we_gate": ParamSpec((ep, d, ff), "lecun", d,
+                             axes=("expert", "embed", None)),
+        "we_up": ParamSpec((ep, d, ff), "lecun", d,
+                           axes=("expert", "embed", None)),
+        "we_down": ParamSpec((ep, ff, d), "lecun", ff,
+                             axes=("expert", None, "embed")),
     }
     if cfg.num_shared_experts:
         # shared experts fused into one wider always-on MLP
@@ -79,45 +90,107 @@ def router_probs(params, cfg: ArchConfig, x):
 
 
 def moe_apply(params, cfg: ArchConfig, x, capacity: Optional[int] = None):
-    """x: (B, S, d) -> (y, aux loss), on one device (the reference's
-    ``_moe_local``).  ``capacity`` (slots an expert takes) defaults to
-    :func:`moe_capacity` of the call's tokens."""
+    """x: (B, S, d) -> (y, aux loss).  Expert-parallel
+    (:func:`_moe_shard_map`) under an ambient mesh whose ``model`` axis has
+    more than one rank and divides the padded expert count (on a mesh,
+    ``x`` is this rank's data shard of the tokens); else the local path."""
+    from repro_torch.models.shardctx import current_mesh
+
+    mesh = current_mesh()
+    if mesh is not None:
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+        dp_axes = tuple(a for a in ("pod", "data") if a in sizes)
+        msize = sizes.get("model", 1)
+        if msize > 1 and params["we_gate"].shape[0] % msize == 0:
+            return _moe_shard_map(params, cfg, x, mesh, dp_axes, msize)
+    return _moe_local(params, cfg, x, capacity)
+
+
+def _dispatch(xt, ids, weights, wg, wu, wd, act, n_exp: int,
+              capacity: int, lo: int = 0):
+    """The sort-based dispatch over the experts [lo, lo + n_exp) of ``wg``,
+    ``wu``, ``wd`` (their first dims); a slot routed elsewhere, or past its
+    expert's ``capacity``, is dropped.  Returns the (T, d) float32 sum over
+    each token's kept slots of weight x expert output."""
+    t, d = xt.shape
+    k = ids.shape[-1]
+    dev = xt.device
+    flat_ids = ids.reshape(-1)                               # (T*K,)
+    mine = (flat_ids >= lo) & (flat_ids < lo + n_exp)
+    loc_ids = torch.where(mine, flat_ids - lo, n_exp)        # n_exp: dropped
+    # slots sorted by expert (stable: by token within an expert); a slot's
+    # rank in its expert from where the expert's run starts
+    order = torch.argsort(loc_ids, stable=True)
+    sorted_ids = loc_ids[order]
+    starts = torch.searchsorted(sorted_ids,
+                                torch.arange(n_exp + 1, device=dev))
+    rank = torch.arange(t * k, device=dev) - starts[sorted_ids]
+    keep = (sorted_ids < n_exp) & (rank < capacity)
+    # a dropped slot goes to the extra last row, which is cut off
+    dest = torch.where(keep, sorted_ids * capacity + rank, n_exp * capacity)
+    buf = xt.new_zeros((n_exp * capacity + 1, d)).index_copy(
+        0, dest, xt[order // k])
+    buf = buf[:n_exp * capacity].view(n_exp, capacity, d)
+
+    g = act(torch.bmm(buf, wg))
+    u = torch.bmm(buf, wu)
+    yb = torch.bmm(g * u, wd).reshape(n_exp * capacity, d)
+
+    # back to (token, k) order: slot order[i] sits at sorted position i
+    pos = torch.empty_like(order).scatter_(
+        0, order, torch.arange(t * k, device=dev))
+    dest_tk, keep_tk = dest[pos], keep[pos]
+    y_slot = torch.where(keep_tk[:, None],
+                         yb[dest_tk.clamp(max=n_exp * capacity - 1)], 0.0)
+    return (y_slot.float() * weights.reshape(-1)[:, None]).view(
+        t, k, d).sum(dim=1)
+
+
+def _moe_shard_map(params, cfg: ArchConfig, x, mesh, dp_axes, msize: int):
+    """Expert-parallel MoE on this rank: its ``ep / msize`` experts over
+    its tokens ``x`` (B, S, d), the partial outputs summed over the
+    ``model`` group (one all-reduce), the aux loss averaged over the data
+    axes.  Matches the local path within float32 rounding when no slot is
+    dropped (the sums over a token's experts are taken in another order)."""
+    from repro_torch import comm
+    from repro_torch.launch.mesh import axes_group
+
     b, s, d = x.shape
     t = b * s
-    k = cfg.moe_top_k
+    ep = params["we_gate"].shape[0]
+    e_loc = ep // msize
+    c_loc = moe_capacity(cfg, t, ep)
+    xt = x.reshape(t, d)
+    weights, ids, aux = router_probs(params, cfg, xt)
+    if dp_axes:
+        group = axes_group(mesh, dp_axes)
+        aux = comm.all_reduce_sum(aux, group) / comm.group_size(group)
+    lo = mesh.get_local_rank("model") * e_loc
+    part = slice(lo, lo + e_loc)
+    out = _dispatch(xt, ids, weights, params["we_gate"][part],
+                    params["we_up"][part], params["we_down"][part],
+                    act_fn(cfg.act), e_loc, c_loc, lo)
+    # the one collective: the experts' partials summed over `model`
+    out = comm.all_reduce_sum(out, mesh.get_group("model"))
+    if cfg.num_shared_experts:
+        out = out + mlp(params["shared"], xt, cfg.act).float()
+    return out.to(x.dtype).reshape(b, s, d), aux
+
+
+def _moe_local(params, cfg: ArchConfig, x, capacity: Optional[int] = None):
+    """x: (B, S, d) -> (y, aux loss) on one device.  ``capacity`` (slots
+    an expert takes) defaults to :func:`moe_capacity` of the call's
+    tokens."""
+    b, s, d = x.shape
+    t = b * s
     xt = x.reshape(t, d)
     weights, ids, aux = router_probs(params, cfg, xt)
     ep = params["we_gate"].shape[0]
     if capacity is None:
         capacity = moe_capacity(cfg, t, ep)
 
-    # slots sorted by expert (stable: by token within an expert); a slot's
-    # rank in its expert from where the expert's run starts
-    flat_ids = ids.reshape(-1)                               # (T*K,)
-    order = torch.argsort(flat_ids, stable=True)
-    sorted_ids = flat_ids[order]
-    starts = torch.searchsorted(sorted_ids,
-                                torch.arange(ep, device=x.device))
-    rank = torch.arange(t * k, device=x.device) - starts[sorted_ids]
-    keep = rank < capacity
-    # a dropped slot goes to the extra last row, which is cut off
-    dest = torch.where(keep, sorted_ids * capacity + rank, ep * capacity)
-    buf = x.new_zeros((ep * capacity + 1, d)).index_copy(
-        0, dest, xt[order // k])
-    buf = buf[:ep * capacity].view(ep, capacity, d)
-
-    g = act_fn(cfg.act)(torch.bmm(buf, params["we_gate"]))
-    u = torch.bmm(buf, params["we_up"])
-    yb = torch.bmm(g * u, params["we_down"]).reshape(ep * capacity, d)
-
-    # back to (token, k) order: slot order[i] sits at sorted position i
-    pos = torch.empty_like(order).scatter_(
-        0, order, torch.arange(t * k, device=x.device))
-    dest_tk, keep_tk = dest[pos], keep[pos]
-    y_slot = torch.where(keep_tk[:, None],
-                         yb[dest_tk.clamp(max=ep * capacity - 1)], 0.0)
-    out = (y_slot.float() * weights.reshape(-1)[:, None]).view(
-        t, k, d).sum(dim=1)
+    out = _dispatch(xt, ids, weights, params["we_gate"], params["we_up"],
+                    params["we_down"], act_fn(cfg.act), ep, capacity)
     if cfg.num_shared_experts:
         out = out + mlp(params["shared"], xt, cfg.act).float()
     return out.to(x.dtype).reshape(b, s, d), aux

@@ -1,6 +1,10 @@
 """Parameter definitions: one tree of ``ParamSpec`` leaves gives a model's
-shapes, inits and per-leaf dtypes (the JAX package's ``repro.models.pdefs``
-without its mesh rules, which come with the placement slice).
+shapes, inits, per-leaf dtypes and logical axes (the JAX package's
+``repro.models.pdefs``).  Its MaxText-style rules map the logical axes
+onto a rank mesh with the same divisibility fallback (``resolve_specs``,
+the reference's PartitionSpec entries as tuples), and
+:func:`dtensor_placements` turns a spec into the ``Shard``/``Replicate``
+placements of a ``DeviceMesh`` (``Placement.shard_params``).
 
 A params tree is nested dicts and lists laid out as the reference's, so
 its leaves have the reference's paths (dict keys, and list indices as
@@ -27,6 +31,9 @@ class ParamSpec(NamedTuple):
     #: dtype``: the SSM decays, the RG-LRU's ``lam`` and the MoE router
     #: stay float32 in a bf16 model)
     dtype: Optional[torch.dtype] = None
+    #: logical axis names, one a dim (``LOGICAL_RULES`` maps them onto a
+    #: mesh); () = every dim replicated
+    axes: Tuple[Optional[str], ...] = ()
 
 
 def map_defs(fn: Callable, defs, path: Tuple = ()):
@@ -51,10 +58,80 @@ def walk(defs, prefix: Tuple = ()) -> Iterator[Tuple[Tuple, ParamSpec]]:
         yield from walk(node, prefix + (key,))
 
 
+# Logical axis -> mesh axis (or tuple of mesh axes for FSDP over pod+data).
+# "fsdp" resolves to ("pod", "data") on the multi-pod mesh, ("data",) single.
+LOGICAL_RULES = {
+    "vocab": "model",
+    "embed": "fsdp",
+    "heads": "model",
+    "kv_heads": "model",
+    "qdim": "model",   # flattened q feature dim (hidden TP strategy)
+    "kvdim": "model",
+    "mlp": "model",
+    "expert": "model",
+    "inner": "model",  # mamba2 d_inner / rg-lru width
+    "ssm_heads": "model",
+    "layers": None,
+    "conv": None,
+    "norm": None,
+    "cond": "model",   # DiT adaLN output dim (6*d)
+}
+
+
+def _mesh_axis_sizes(mesh) -> dict:
+    return dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.mesh.shape)))
+
+
+def resolve_axis(logical: Optional[str], dim: int, mesh):
+    """A logical axis -> mesh axis (or axes) when ``dim`` divides its size,
+    else None (replicated)."""
+    if logical is None:
+        return None
+    target = LOGICAL_RULES.get(logical)
+    if target is None:
+        return None
+    sizes = _mesh_axis_sizes(mesh)
+    if target == "fsdp":
+        fsdp_axes = tuple(a for a in ("pod", "data") if a in sizes)
+        total = int(np.prod([sizes[a] for a in fsdp_axes]))
+        if fsdp_axes and dim % total == 0:
+            return fsdp_axes if len(fsdp_axes) > 1 else fsdp_axes[0]
+        # fall back to data-only fsdp if pod*data does not divide
+        if "data" in sizes and dim % sizes["data"] == 0:
+            return "data"
+        return None
+    if target in sizes and dim % sizes[target] == 0:
+        return target
+    return None
+
+
+def resolve_spec(spec: ParamSpec, mesh) -> Tuple:
+    """The mesh axes of each dim of ``spec`` (PartitionSpec entries)."""
+    axes = spec.axes or (None,) * len(spec.shape)
+    return tuple(resolve_axis(ax, dim, mesh)
+                 for ax, dim in zip(axes, spec.shape))
+
+
+def resolve_specs(defs, mesh):
+    return map_defs(lambda _, spec: resolve_spec(spec, mesh), defs)
+
+
+def dtensor_placements(spec: Tuple, mesh) -> list:
+    """PartitionSpec entries -> one ``Shard(dim)`` / ``Replicate()`` per
+    mesh dim (a mesh dim no tensor dim names is replicated)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = [Replicate() for _ in mesh.mesh_dim_names]
+    for dim, entry in enumerate(spec):
+        for axis in ((entry,) if isinstance(entry, str) else entry or ()):
+            out[mesh.mesh_dim_names.index(axis)] = Shard(dim)
+    return out
+
+
 def stack_defs(defs, n: int):
     """Prepend a stacked layer axis of size ``n`` to every spec."""
-    return map_defs(lambda _, spec: spec._replace(shape=(n,) + spec.shape),
-                    defs)
+    return map_defs(lambda _, spec: spec._replace(
+        shape=(n,) + spec.shape, axes=("layers",) + spec.axes), defs)
 
 
 def param_count(defs) -> int:

@@ -33,15 +33,18 @@ def rglru_def(cfg: ArchConfig):
     bs = d // nb
     w = cfg.rglru_conv_width
     return {
-        "w_y": ParamSpec((d, d), "lecun", d),
-        "w_x": ParamSpec((d, d), "lecun", d),
-        "conv": ParamSpec((w, d), "lecun", w),
-        "w_a": ParamSpec((nb, bs, bs), "lecun", bs),
-        "w_i": ParamSpec((nb, bs, bs), "lecun", bs),
-        "b_a": ParamSpec((d,), "zeros"),
-        "b_i": ParamSpec((d,), "zeros"),
-        "lam": ParamSpec((d,), "normal", scale=0.5, dtype=torch.float32),
-        "w_o": ParamSpec((d, d), "lecun", d),
+        "w_y": ParamSpec((d, d), "lecun", d, axes=("embed", "inner")),
+        "w_x": ParamSpec((d, d), "lecun", d, axes=("embed", "inner")),
+        "conv": ParamSpec((w, d), "lecun", w, axes=("conv", "inner")),
+        "w_a": ParamSpec((nb, bs, bs), "lecun", bs,
+                         axes=(None, None, "inner")),
+        "w_i": ParamSpec((nb, bs, bs), "lecun", bs,
+                         axes=(None, None, "inner")),
+        "b_a": ParamSpec((d,), "zeros", axes=("inner",)),
+        "b_i": ParamSpec((d,), "zeros", axes=("inner",)),
+        "lam": ParamSpec((d,), "normal", scale=0.5, dtype=torch.float32,
+                         axes=("inner",)),
+        "w_o": ParamSpec((d, d), "lecun", d, axes=("inner", "embed")),
     }
 
 

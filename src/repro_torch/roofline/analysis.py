@@ -7,9 +7,12 @@
 
 The FLOPs and bytes come from :class:`repro_torch.roofline.counter.
 CostCounter` (an eager program's ops; the reference reads them from a
-compiled XLA program).  There is no HLO here, so the reference's
-``parse_collective_bytes`` has no counterpart: on one card the collective
-term is 0.  Its ``torch.distributed`` form comes with the mesh slice.
+compiled XLA program).  The collective bytes come from the port's
+collective call sites (``repro_torch.comm`` counts each kind's operand
+bytes as it issues it): :func:`collective_bytes` stands where the
+reference's ``parse_collective_bytes`` reads partitioned HLO, which eager
+PyTorch does not have.  On one rank without a mesh nothing is issued and
+the term is 0.
 
 Hardware constants: NVIDIA H100 SXM5 data sheet, dense rates without
 sparsity, at its 700 W limit — 989 TFLOP/s bf16 on the tensor cores, 495
@@ -19,7 +22,7 @@ at 3.35 TB/s; NVLink 4, 900 GB/s a card to its peers, 450 GB/s each way.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 PEAK_FLOPS = 989e12     # bf16 (and fp16) tensor cores, dense, per card
 TF32_FLOPS = 495e12     # TF32 tensor cores, dense
@@ -27,6 +30,24 @@ F32_FLOPS = 67e12       # float32 outside the tensor cores
 HBM_BW = 3.35e12        # bytes/s, HBM3
 LINK_BW = 450e9         # bytes/s, NVLink 4, each way
 HBM_PER_CHIP = 80e9     # bytes of HBM3
+
+
+#: the collective kinds of the reference's HLO parser, in its order
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+
+def collective_bytes(counted: Optional[Mapping[str, int]] = None
+                     ) -> Dict[str, int]:
+    """Per-collective-kind operand bytes a rank issued, under the
+    reference's kind names (its ``parse_collective_bytes`` result):
+    ``counted`` defaults to ``repro_torch.comm.nbytes``, the counts since
+    its last ``reset``.  Kinds the port never issues stay 0."""
+    if counted is None:
+        from repro_torch import comm
+
+        counted = comm.nbytes
+    return {k: int(counted.get(k, 0)) for k in COLLECTIVES}
 
 
 def peak_for(dtype: str, tf32: bool = False) -> float:

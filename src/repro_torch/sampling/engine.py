@@ -37,6 +37,19 @@ reference's does.
 Noise comes from ``noise_fn(request) -> (T+1, *sample_shape)``, by default
 :func:`repro_torch.diffusion.samplers.draw_noises` seeded from
 ``request.seed``; tests inject the JAX package's noise through it.
+
+On a mesh (``placement=Placement.for_mesh(...)``, one process per rank)
+the request axis shards over ``data``: each rank packs and solves only its
+data shard's lanes (``Placement.lanes``), and what a caller reads is
+all-gathered over the data group — a whole batch's outputs at the end of
+``dispatch``, the (slots, 5) summary at each ``stepwise_step``, the retired
+lanes' rows at harvest, the whole state at ``fetch_bank`` — so every rank
+sees every lane and each round still makes one blocking poll.  A solve's
+per-iteration poll reduces its finished flag over the data group, so all
+shards iterate in step.  With a ``time`` axis the solve window shards over
+it (``ParaTAAConfig.time_axis``).  Per-lane math does not depend on the
+partition, so a sharded engine's results equal the host placement's bit
+for bit.
 """
 from __future__ import annotations
 
@@ -52,6 +65,7 @@ from repro_torch.core.coeffs import SolverCoeffs
 from repro_torch.device import DeviceLike, resolve_device, to_device
 from repro_torch.diffusion.samplers import _sequential_sample, draw_noises
 from repro_torch.obs import Observability, StatsView
+from repro_torch.sampling.placement import Placement
 from repro_torch.sampling.specs import SamplerSpec
 from repro_torch.sampling.types import DIAG_KEYS, SampleRequest, SampleResult
 
@@ -86,7 +100,9 @@ class LaneBank:
     """A live, resumable batch of solver lanes (the stepwise dispatch unit).
 
     ``state`` is the lane-batched :class:`repro_torch.core.parataa
-    .SolverState` on the engine's device; each of the ``slots`` lanes holds
+    .SolverState` on the engine's device (on a mesh: this rank's data
+    shard of the lanes, ``Placement.lanes(slots)``); each of the ``slots``
+    lanes holds
     one in-flight request (or ``None`` = vacant, kept ``finished`` by an
     iteration budget of 0, so the guarded chunk passes it through).  Lanes
     retire the moment their own request finishes and are refilled in place.
@@ -174,6 +190,12 @@ class SamplingEngine:
     spec:         SamplerSpec strategy ("seq" or any ParaTAA variant)
     sample_shape: per-sample latent shape, e.g. (num_tokens, latent_dim)
     device:       where the solve runs; None = cuda (raises without CUDA)
+    placement:    :class:`~repro_torch.sampling.Placement` (rank mesh and
+                  lane/window layout); default the host placement
+    param_defs:   a ``ParamSpec`` tree for sharded parameter layouts; the
+                  port's denoisers take plain tensors, so a mesh placement
+                  given one raises (``Placement.shard_params`` makes the
+                  DTensors)
     noise_fn:     request -> (T+1, *sample_shape) noise; default draws from
                   a torch.Generator seeded with ``request.seed``
     clock:        monotonic timestamp source for ``wall_s``/``pack_s`` and
@@ -192,17 +214,27 @@ class SamplingEngine:
     def __init__(self, eps_apply: Callable, params, coeffs: SolverCoeffs,
                  spec: SamplerSpec, *, sample_shape: Sequence[int],
                  dtype=torch.float32, device: DeviceLike = None,
+                 placement: Optional[Placement] = None, param_defs=None,
                  noise_fn: Optional[Callable] = None,
                  clock: Callable[[], float] = time.monotonic,
                  obs: Optional[Observability] = None,
                  name: Optional[str] = None):
         self.eps_apply = eps_apply
-        self.params = params
         self.coeffs = coeffs
         self.spec = spec
         self.sample_shape = tuple(sample_shape)
         self.dtype = dtype
         self.device = resolve_device(device)
+        self.placement = placement or Placement.host()
+        if self.placement.is_sharded and params is not None:
+            if param_defs is not None:
+                raise NotImplementedError(
+                    "param_defs: the port's denoisers take plain tensors "
+                    "and run replicated over the mesh; Placement."
+                    "shard_params(params, defs) gives DTensors for code "
+                    "that runs on them")
+            params = self.placement.shard_params(params)
+        self.params = params
         self.noise_fn = noise_fn or self.draw_request_noise
         self._clock = clock
         self.obs = obs if obs is not None else Observability.off()
@@ -237,6 +269,26 @@ class SamplingEngine:
         if self.spec.is_sequential:
             return 1
         return min(self.spec.window or T, T)
+
+    def _solver_cfg(self, cfg: _parataa.ParaTAAConfig
+                    ) -> _parataa.ParaTAAConfig:
+        """Thread the placement's time axis into a solver config: the solve
+        window's eps rows shard over it (bit for bit the unsharded solve).
+        Set whenever the mesh has the axis, also at one time shard, so a
+        mesh of one rank issues the same collectives."""
+        if self.placement.time_axis is not None:
+            return dataclasses.replace(cfg,
+                                       time_axis=self.placement.time_axis)
+        return cfg
+
+    def _report_placement(self, n_real: int, slots: int) -> Dict:
+        plc = self.placement
+        return dict(
+            slot_utilization=plc.slot_utilization(n_real, slots),
+            axis_utilization=plc.axis_utilization(n_real, slots,
+                                                  self.window),
+            devices=plc.num_devices, data_shards=plc.data_shards,
+            model_shards=plc.model_shards, time_shards=plc.time_shards)
 
     def update_launches_per_iter(self) -> int:
         """Modeled launches per solver iteration of the Anderson UPDATE
@@ -304,11 +356,14 @@ class SamplingEngine:
             return traj, dict(iters=full, nfe=full.clone(),
                               converged=torch.ones_like(full,
                                                         dtype=torch.bool)), 0
-        solver = spec.solver_config(T)
+        solver = self._solver_cfg(spec.solver_config(T))
+        plc = self.placement
+        kw = {} if diagnostics else {
+            "lane_axis": plc.data_axis if plc.is_sharded else None}
         fn = _parataa.sample_recording if diagnostics else _parataa.sample
         traj, info = fn(eps_fn, coeffs, solver, xis, x_init=x0s,
                         dtype=self.dtype, t_init=t_inits, tau_sq=tau_sqs,
-                        iter_cap=iter_caps)
+                        iter_cap=iter_caps, **kw)
         keep = ("iters", "nfe", "converged", "residuals") + \
             (DIAG_KEYS if diagnostics else ())
         return traj, {k: info[k] for k in keep if k in info}, \
@@ -355,20 +410,25 @@ class SamplingEngine:
             diagnostics=diagnostics,
             warm_start=any(r.init is not None for r in requests),
             solver_overrides=any(r.has_solver_overrides for r in requests))
-        B = slots or len(requests)
+        plc = self.placement
+        B = plc.round_batch(slots or len(requests))
         if len(requests) > B:
             raise ValueError(
                 f"{len(requests)} requests exceed {B} request slots")
         chunk = requests + [requests[-1]] * (B - len(requests))
+        lo, hi = plc.lanes(B)
         t0 = self._clock()
         with self._tracer.span("engine.pack", tid=self.name,
                                requests=len(requests), slots=B):
-            packed = self._pack(chunk)
+            packed = self._pack(chunk[lo:hi])
         t1 = self._clock()
         with self._tracer.span("engine.dispatch", tid=self.name, slots=B):
-            with torch.inference_mode():
+            with torch.inference_mode(), plc.activations():
                 trajs, info, polls = self._solve(*packed,
                                                  diagnostics=diagnostics)
+                # every data shard's lanes, in slot order, on every rank
+                trajs = plc.gather_lanes(trajs)
+                info = {k: plc.gather_lanes(v) for k, v in info.items()}
                 trajs = _to_host_async(trajs)
                 info = {k: _to_host_async(v) for k, v in info.items()}
             event = self._record_event()
@@ -420,7 +480,7 @@ class SamplingEngine:
             wall_s=wall, pack_s=pending.pack_s,
             host_fetch_bytes=fetched, blocking_polls=polls,
             requests=n_real, slots=pending.slots,
-            slot_utilization=n_real / pending.slots,
+            **self._report_placement(n_real, pending.slots),
             iters=[int(i) for i in all_iters[:n_real]],
             nfe=[int(n) for n in info["nfe"][:n_real]],
             warm_start_depth=[self._warm_depth(r) for r in pending.requests],
@@ -473,7 +533,7 @@ class SamplingEngine:
             return []
         if batch_size is not None and batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
-        B = batch_size or len(requests)
+        B = self.placement.round_batch(batch_size or len(requests))
         self.last_dispatches = []
         results: List[SampleResult] = []
         for lo in range(0, len(requests), B):
@@ -531,7 +591,7 @@ class SamplingEngine:
     # (slots, 5) summary) and gather (only the retired lanes' rows).
 
     def _stepwise_cfg(self) -> _parataa.ParaTAAConfig:
-        return self.spec.stepwise_config(self.coeffs.T)
+        return self._solver_cfg(self.spec.stepwise_config(self.coeffs.T))
 
     def _note_program(self, kind: str) -> None:
         """Count the first use of a stepwise program kind (the port's
@@ -549,15 +609,18 @@ class SamplingEngine:
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         T, dev = self.coeffs.T, self.device
+        slots = self.placement.round_batch(slots)
+        lo, hi = self.placement.lanes(slots)
         t0 = self._clock()
         with self._tracer.span("stepwise.open", tid=self.name, slots=slots):
             with torch.inference_mode():
-                xi = torch.zeros((slots, T + 1) + self.sample_shape,
+                xi = torch.zeros((hi - lo, T + 1) + self.sample_shape,
                                  dtype=torch.float32, device=dev)
                 state = _parataa.init_state(self.coeffs, self._stepwise_cfg(),
                                             xi, dtype=self.dtype,
                                             iter_cap=0)
-                labels = torch.zeros((slots,), dtype=torch.long, device=dev)
+                labels = torch.zeros((hi - lo,), dtype=torch.long,
+                                     device=dev)
             buf = torch.zeros((slots, 5), dtype=torch.int32,
                               pin_memory=dev.type == "cuda")
         self._note_program("open")
@@ -588,28 +651,33 @@ class SamplingEngine:
             solver_overrides=any(r.has_solver_overrides for r in requests))
         t0 = self._clock()
         dev = self.device
+        # this rank packs only the requests of its own data shard's lanes
+        lo, hi = self.placement.lanes(bank.slots)
+        mine = [(lane, req) for lane, req in zip(lanes, requests)
+                if lo <= lane < hi]
         with self._tracer.span("stepwise.refill", tid=self.name,
                                lanes=len(lanes)):
-            with torch.inference_mode():
-                xis, labels, x0s, t_inits, tau_sqs, iter_caps = \
-                    self._pack(requests)
-                pos = {lane: i for i, lane in enumerate(lanes)}
-                idx = to_device([pos.get(j, 0) for j in range(bank.slots)],
-                                torch.long, dev)
-                refill = to_device([j in pos for j in range(bank.slots)],
-                                   torch.bool, dev)
+            if mine:
+                with torch.inference_mode():
+                    xis, labels, x0s, t_inits, tau_sqs, iter_caps = \
+                        self._pack([req for _, req in mine])
+                    pos = {lane - lo: i for i, (lane, _) in enumerate(mine)}
+                    idx = to_device([pos.get(j, 0) for j in range(hi - lo)],
+                                    torch.long, dev)
+                    refill = to_device([j in pos for j in range(hi - lo)],
+                                       torch.bool, dev)
 
-                def spread(a):
-                    return a.index_select(0, idx)
+                    def spread(a):
+                        return a.index_select(0, idx)
 
-                fresh = _parataa.init_state(
-                    self.coeffs, self._stepwise_cfg(), spread(xis),
-                    x_init=spread(x0s), dtype=self.dtype,
-                    t_init=spread(t_inits), tau_sq=spread(tau_sqs),
-                    iter_cap=spread(iter_caps))
-                bank.state = fresh.keep_where(refill, bank.state)
-                bank.labels = torch.where(refill, spread(labels),
-                                          bank.labels)
+                    fresh = _parataa.init_state(
+                        self.coeffs, self._stepwise_cfg(), spread(xis),
+                        x_init=spread(x0s), dtype=self.dtype,
+                        t_init=spread(t_inits), tau_sq=spread(tau_sqs),
+                        iter_cap=spread(iter_caps))
+                    bank.state = fresh.keep_where(refill, bank.state)
+                    bank.labels = torch.where(refill, spread(labels),
+                                              bank.labels)
         self._note_program("init")
         self._note_program("merge")
         for lane, req in zip(lanes, requests):
@@ -631,13 +699,14 @@ class SamplingEngine:
         with self._tracer.span("stepwise.step", tid=self.name,
                                chunk_iters=bank.chunk_iters,
                                occupied=bank.occupied):
-            with torch.inference_mode():
+            with torch.inference_mode(), self.placement.activations():
                 state = _parataa.step_chunk(
                     self._lane_eps(bank.labels), self.coeffs,
                     self._stepwise_cfg(), bank.state, bank.chunk_iters,
                     sample_shape=self.sample_shape)
-                bank.summary_buf.copy_(_parataa.lane_summary(state),
-                                       non_blocking=True)
+                bank.summary_buf.copy_(
+                    self.placement.gather_lanes(
+                        _parataa.lane_summary(state)), non_blocking=True)
             bank.summary_event = self._record_event()
         self._note_program("step")
         bank.state = state
@@ -682,16 +751,17 @@ class SamplingEngine:
             # no chunk has run since open/refill: read the state fields,
             # in the reference's dtypes
             state = bank.state
+            gather = self.placement.gather_lanes
             with self._tracer.span("stepwise.poll", tid=self.name,
                                    fallback=True):
                 with torch.inference_mode():
                     polled = dict(
-                        finished=_to_numpy(state.finished),
-                        iters=_to_numpy(state.it.to(torch.int32)),
-                        nfe=_to_numpy(state.nfe.to(torch.int32)),
-                        done=_to_numpy(state.done),
-                        residual=_to_numpy(
-                            _parataa.lane_residual(state).float()))
+                        finished=_to_numpy(gather(state.finished)),
+                        iters=_to_numpy(gather(state.it.to(torch.int32))),
+                        nfe=_to_numpy(gather(state.nfe.to(torch.int32))),
+                        done=_to_numpy(gather(state.done)),
+                        residual=_to_numpy(gather(
+                            _parataa.lane_residual(state).float())))
             self._count_fetch(bank, sum(v.nbytes for v in polled.values()),
                               polls=1)
         bank.poll_cache = polled
@@ -703,9 +773,8 @@ class SamplingEngine:
         stays ``finished``, so later chunks pass them through until refill).
 
         Only the retired lanes' rows cross to the host: one gather
-        (``index_select`` by an index padded to ``slots`` with the first
-        retired lane) and a ``len(ready) x (T+1) x D`` fetch; sequential
-        specs skip the residual rows (they discard them)."""
+        (:meth:`_gather_ready`) and a ``len(ready) x (T+1) x D`` fetch;
+        sequential specs skip the residual rows (they discard them)."""
         if not any(req is not None for req in bank.requests):
             return []                       # idle bank: nothing to poll
         polled = self.stepwise_poll(bank)
@@ -717,14 +786,11 @@ class SamplingEngine:
         n = len(ready)
         with self._tracer.span("stepwise.harvest", tid=self.name, retired=n):
             with torch.inference_mode():
-                idx = to_device(ready + [ready[0]] * (bank.slots - n),
-                                torch.long, self.device)
-                xg = bank.state.x.index_select(0, idx)[:n]
+                xg, rg = self._gather_ready(bank, ready)
                 fetched = xg.numel() * xg.element_size()
                 trajs = _to_numpy(xg).reshape((n, T + 1) + self.sample_shape)
                 residuals = None
-                if not self.spec.is_sequential:
-                    rg = bank.state.r_last.index_select(0, idx)[:n]
+                if rg is not None:
                     fetched += rg.numel() * rg.element_size()
                     residuals = _to_numpy(rg)
         self._note_program("gather")
@@ -748,6 +814,33 @@ class SamplingEngine:
             bank.harvested_nfe += nfe
             bank.completed += 1
         return out
+
+    def _gather_ready(self, bank: LaneBank, ready: List[int]):
+        """The retired lanes' trajectory (and, but for seq, residual) rows,
+        in ``ready``'s (ascending) order: each data shard selects its own
+        retired lanes (``index_select``, padded by repeating one to the
+        most any shard retired) and one all-gather over the data group
+        brings them to every rank; the padding rows are dropped."""
+        plc = self.placement
+        width = bank.slots // plc.data_shards
+        per = [[lane % width for lane in ready if lane // width == d]
+               for d in range(plc.data_shards)]
+        most = max(len(p) for p in per)
+        mine = per[plc.data_index]
+        idx = to_device(mine + [mine[0] if mine else 0] * (most - len(mine)),
+                        torch.long, self.device)
+        keep = None
+        if len(ready) < most * plc.data_shards:
+            keep = to_device([d * most + j for d, p in enumerate(per)
+                              for j in range(len(p))], torch.long,
+                             self.device)
+
+        def gather(t):
+            out = plc.gather_lanes(t.index_select(0, idx))
+            return out if keep is None else out.index_select(0, keep)
+
+        rg = None if self.spec.is_sequential else gather(bank.state.r_last)
+        return gather(bank.state.x), rg
 
     def stepwise_report(self, bank: LaneBank) -> Dict:
         """Work-accounting snapshot of a bank, shaped like a
@@ -773,8 +866,7 @@ class SamplingEngine:
             gather_launches=bank.gather_launches,
             harvests=bank.harvests,
             update_launches=bank.update_launches,
-            devices=1,
-            slot_utilization=bank.occupied / bank.slots,
+            **self._report_placement(bank.occupied, bank.slots),
             **self._work_report(useful, bank.device_iters, bank.slots))
 
     # -- moving a bank through host memory -----------------------------------
@@ -791,17 +883,18 @@ class SamplingEngine:
         :class:`BankSnapshot`: one blocking fetch of every state field (not
         the summary path: the exact bytes are the point), counted as one
         blocking poll plus its bytes."""
+        gather = self.placement.gather_lanes
         with self._tracer.span("stepwise.fetch_bank", tid=self.name,
                                slots=bank.slots, occupied=bank.occupied):
             with torch.inference_mode():
                 state, bf16 = {}, []
                 for f in dataclasses.fields(bank.state):
-                    t = getattr(bank.state, f.name)
+                    t = gather(getattr(bank.state, f.name))
                     if t.dtype == torch.bfloat16:
                         t = t.view(torch.int16)
                         bf16.append(f.name)
                     state[f.name] = t.cpu().numpy()
-                labels = bank.labels.cpu().numpy()
+                labels = gather(bank.labels).cpu().numpy()
         snap = BankSnapshot(
             state=state, labels=labels, requests=list(bank.requests),
             slots=bank.slots, chunk_iters=bank.chunk_iters,
@@ -814,22 +907,31 @@ class SamplingEngine:
 
     def adopt_bank(self, snapshot: BankSnapshot, *,
                    chunk_iters: Optional[int] = None) -> LaneBank:
-        """A live :class:`LaneBank` on this engine's device with the
-        snapshot's exact bytes: the next ``stepwise_step`` resumes the solve
-        where ``fetch_bank`` froze it, bit for bit.  The first poll after it
-        reads the state fields (still one blocking poll for that round)."""
+        """A live :class:`LaneBank` on this engine's device (its data
+        shard's lanes, on a mesh) with the snapshot's exact bytes: the next
+        ``stepwise_step`` resumes the solve where ``fetch_bank`` froze it,
+        bit for bit, whatever placement it was fetched from.  The first
+        poll after it reads the state fields (still one blocking poll for
+        that round)."""
         dev = self.device
+        B = snapshot.slots
+        if self.placement.round_batch(B) != B:
+            raise ValueError(
+                f"snapshot slots={B} do not divide the adopting engine's "
+                f"data shards ({self.placement.data_shards}); rebuild with "
+                f"a compatible data-parallel degree")
+        lo, hi = self.placement.lanes(B)
         with self._tracer.span("stepwise.adopt_bank", tid=self.name,
                                slots=snapshot.slots,
                                occupied=snapshot.occupied):
             fields = {}
             for name, arr in snapshot.state.items():
-                t = torch.from_numpy(arr.copy())
+                t = torch.from_numpy(arr[lo:hi].copy())
                 if name in snapshot.bf16:
                     t = t.view(torch.bfloat16)
                 fields[name] = to_device(t, t.dtype, dev)
             state = _parataa.SolverState(**fields)
-            labels = to_device(snapshot.labels, torch.long, dev)
+            labels = to_device(snapshot.labels[lo:hi], torch.long, dev)
             buf = torch.zeros((snapshot.slots, 5), dtype=torch.int32,
                               pin_memory=dev.type == "cuda")
         return LaneBank(state=state, labels=labels,

@@ -44,6 +44,12 @@ and records per-lane residual-vs-round curves off the stepwise poll — all
 protocol-neutral (same 5 stepwise program kinds, same one blocking poll
 per live key per round, the same solves).
 
+:class:`ResilientServingLoop` (``resilience``) supervises the stepwise
+rounds: simulated device loss (:class:`FaultInjector`), a rebuild of every
+live bank onto the surviving sub-mesh that resumes the solves bit for bit,
+restart/backoff policy and draft-tier degradation.  On a mesh, rank 0
+decides each round and the other ranks follow (``loop.RankControl``).
+
 Results equal ``engine.run_batch`` over the same requests at the same slot
 geometry: batching is a scheduling concern, not a numerics one (a lane's
 state evolves as if it ran alone).  See ``launch/serve.py --serve-async``
@@ -56,6 +62,9 @@ from repro_torch.serving.loop import ServingLoop, ShutdownError
 from repro_torch.serving.queue import EngineKey, RequestQueue, Ticket
 from repro_torch.serving.refine import RefinePlanner, RefinePolicy
 from repro_torch.serving.registry import EngineRegistry
+from repro_torch.serving.resilience import (DeviceLossError, FaultInjector,
+                                            ResilientServingLoop,
+                                            duplicate_window_eval)
 
 __all__ = [
     "Batcher", "BatchingPolicy", "Dispatch",
@@ -64,4 +73,6 @@ __all__ = [
     "EngineRegistry", "TrajectoryCache",
     "RefinePlanner", "RefinePolicy",
     "Observability",
+    "DeviceLossError", "FaultInjector", "ResilientServingLoop",
+    "duplicate_window_eval",
 ]

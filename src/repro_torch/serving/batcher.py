@@ -83,9 +83,12 @@ class Batcher:
         self._observed: Dict[EngineKey, Deque[dict]] = {}
 
     def slots_for(self, engine) -> int:
-        """The key's fixed dispatch geometry (one device: the policy's
-        ``max_batch``)."""
-        return self.policy.max_batch
+        """The key's fixed dispatch geometry: the policy's ``max_batch``,
+        rounded up to a multiple of the engine placement's data shards."""
+        placement = getattr(engine, "placement", None)
+        if placement is None:
+            return self.policy.max_batch
+        return placement.round_batch(self.policy.max_batch)
 
     def fill_quota(self, slots: int) -> int:
         return max(1, math.ceil(self.policy.target_util * slots))

@@ -21,6 +21,18 @@ The loop can be driven two ways:
   * as a background thread — ``start()`` / ``stop()`` around client threads
     that ``queue.submit(...)`` and block on their tickets (live serving,
     the ``serve.py --serve-async`` entry point).
+
+Under ``torch.distributed`` (engines on a mesh, one process per rank)
+every rank runs the loop, and every rank must issue the same collectives
+in the same order — but the queue, the batcher's fill deadlines and the
+arrival clock are wall-clock decisions that ranks would take apart.  So
+rank 0 decides each round (:class:`RankControl`): it alone holds the
+queue and the tickets, and it broadcasts a round header (go on or stop),
+then for each key the lanes to preempt and the requests to splice into
+which lanes (stepwise), or the dispatches to run (whole batch).  The other
+ranks execute exactly that; what an engine polls or harvests is already
+replicated on every rank (it is all-gathered), so harvests agree without a
+message.  At world size 1 ``RankControl`` is an identity: nothing is sent.
 """
 from __future__ import annotations
 
@@ -28,6 +40,7 @@ import collections
 import threading
 from typing import Deque, Dict, Optional, Tuple
 
+from repro_torch import comm
 from repro_torch.obs import Observability, StatsView
 from repro_torch.serving.batcher import Batcher, Dispatch
 from repro_torch.serving.queue import RequestQueue
@@ -39,6 +52,27 @@ class ShutdownError(RuntimeError):
     were still open: every stranded ticket fails with this instead of
     hanging its ``result()`` forever.  A draft stage that already resolved
     stays deliverable (``Ticket.fail`` keeps ``_draft``)."""
+
+
+class RankControl:
+    """Who decides a round: rank 0 (the leader) decides every host-side
+    choice and :meth:`share` hands it to the other ranks, which pass None
+    and take the leader's value.  At world size 1 ``share`` returns its
+    argument and sends nothing."""
+
+    def __init__(self):
+        self.world = comm.world()
+        self.rank = comm.rank()
+
+    @property
+    def leader(self) -> bool:
+        return self.rank == 0
+
+    def share(self, obj, group=None):
+        """The leader's ``obj`` on every rank of ``group`` (default: all)."""
+        if self.world == 1:
+            return obj
+        return comm.broadcast_object(obj, src=0, group=group)
 
 
 class ServingLoop:
@@ -115,6 +149,8 @@ class ServingLoop:
         if refiner is not None:
             self.stats.update(drafts=0, refines=0, preemptions=0)
         self.error: Optional[BaseException] = None
+        self.control = RankControl()
+        self._stopped = False           # a follower saw the leader's stop
         self._inflight: Deque[Tuple[Dispatch, object]] = collections.deque()
         self._banks: Dict = {}          # EngineKey -> LaneBank
         self._lane_tickets: Dict = {}   # EngineKey -> List[Optional[Ticket]]
@@ -180,12 +216,27 @@ class ServingLoop:
         ``depth``; stepwise mode harvests/refills/advances the live banks.
         """
         self._assert_not_threaded()
-        self._sweep_timeouts()
+        leader = self.control.leader
+        header = self.control.share(
+            self._round_header(flush) if leader else None)
+        if header["stop"]:
+            self._stopped = True
+            return 0
+        self._on_header(header)
+        if not self._serving():
+            return 0
+        flush = header["flush"]
+        if leader:
+            self._sweep_timeouts()
         if self.chunk_iters:
             return self._pump_stepwise(flush=flush)
+        if not leader:
+            return self._follow_dispatches()
         plans = self.batcher.plan(
             self.queue, self.registry, now=self.queue.clock(),
             flush=flush, idle=not self._inflight)
+        self.control.share([(p.key, [t.request for t in p.tickets], p.slots)
+                            for p in plans], self._control_group())
         dispatched = 0
         for plan in plans:
             while len(self._inflight) >= self.depth:
@@ -196,6 +247,42 @@ class ServingLoop:
             self._dispatch(plan)
             dispatched += len(plan.tickets)
         return dispatched
+
+    # -- rank control (hooks the resilient loop extends) ----------------------
+
+    def _round_header(self, flush: bool) -> Dict:
+        """The leader's word on a round, sent to every rank first."""
+        return {"stop": False, "flush": flush}
+
+    def _on_header(self, header: Dict) -> None:
+        """Act on the round header before the round (every rank)."""
+
+    def _serving(self) -> bool:
+        """Whether this rank takes part in rounds (a rank outside every
+        engine's mesh only follows headers)."""
+        return True
+
+    def _control_group(self):
+        """Process group of the ranks serving rounds (None = all)."""
+        return None
+
+    def _send_stop(self) -> None:
+        """The leader ends the followers' drain (no-op at world size 1)."""
+        if self.control.leader and self.control.world > 1:
+            self.control.share({"stop": True, "flush": True})
+
+    def _follow_dispatches(self) -> int:
+        """A follower's whole-batch round: run the leader's dispatches and
+        collect each at once (collecting issues no collective, so its
+        order does not have to match the leader's)."""
+        plans = self.control.share(None, self._control_group())
+        for key, requests, slots in plans:
+            try:
+                engine = self.registry.get(key)
+                engine.collect(engine.dispatch(requests, slots=slots))
+            except Exception:  # noqa: BLE001 — the leader fails the tickets
+                continue
+        return sum(len(requests) for _, requests, _ in plans)
 
     def _sweep_timeouts(self) -> None:
         """Expire queued tickets whose ``SampleRequest.timeout_s`` elapsed
@@ -218,14 +305,20 @@ class ServingLoop:
     def drain(self) -> None:
         """Dispatch everything queued and collect every in-flight batch."""
         self._assert_not_threaded()
+        if not self.control.leader:
+            self._stopped = False
+            while not self._stopped:
+                self.pump()
+            return
         if self.chunk_iters:
             while len(self.queue) or self._occupied_lanes():
                 self.pump(flush=True)
-            return
-        while len(self.queue):
-            self.pump(flush=True)
-        while self._inflight:
-            self._collect_oldest()
+        else:
+            while len(self.queue):
+                self.pump(flush=True)
+            while self._inflight:
+                self._collect_oldest()
+        self._send_stop()
 
     @property
     def inflight(self) -> int:
@@ -261,8 +354,14 @@ class ServingLoop:
             oldest = self.queue.oldest_arrival(key)
             return (now if oldest is None else oldest, key)
 
-        keys = sorted(set(self.queue.keys()) | set(self._banks),
-                      key=starvation)
+        leader, group = self.control.leader, self._control_group()
+        plan = None
+        if leader:
+            keys = sorted(set(self.queue.keys()) | set(self._banks),
+                          key=starvation)
+            plan = (keys, [k for k in keys if k not in self._banks
+                           and self.queue.pending(k)])
+        keys, opens = self.control.share(plan, group)
         for key in keys:
             try:
                 engine = self.registry.get(key)
@@ -272,7 +371,7 @@ class ServingLoop:
                 continue
             bank = self._banks.get(key)
             if bank is None:
-                if not self.queue.pending(key):
+                if key not in opens:
                     continue
                 try:
                     slots = self.batcher.slots_for(engine)
@@ -320,27 +419,19 @@ class ServingLoop:
                     if self.cache and result.converged \
                             and not result.early_stopped:
                         self.registry.cache(key).record(result)
-                free = bank.free_lanes()
-                # preemptible (refine) lanes are BACKGROUND occupancy: when
-                # fresh non-preemptible arrivals outnumber the free lanes,
-                # count enough refine lanes as admission slots and vacate
-                # them below — background refinement never starves
-                # fresh-arrival admission (their warm start rides the
-                # re-enqueued ticket, so preempted progress degrades to the
-                # draft init, never to a cold start)
-                background = [i for i, r in enumerate(bank.requests)
-                              if r is not None and r.preemptible] \
-                    if self.refiner is not None else []
-                extra = min(len(background),
-                            max(self.queue.pending_urgent(key)
-                                - len(free), 0))
-                admit = self.batcher.plan_refill(
-                    self.queue, key, len(free) + extra, now=now,
-                    active=bank.occupied > 0, flush=flush)
-                for lane in background[:max(len(admit) - len(free), 0)]:
-                    self._preempt(key, bank, tickets, lane)
-                admitted += self._refill(engine, bank, tickets,
-                                         bank.free_lanes(), admit)
+                if leader:
+                    valid, share = self._plan_refill(key, engine, bank,
+                                                     tickets, now, flush)
+                    self.control.share(share, group)
+                else:
+                    preempt, lanes, requests = self.control.share(None,
+                                                                  group)
+                    for lane in preempt:
+                        bank.requests[lane] = None
+                    valid = [None] * len(requests)
+                    share = (preempt, lanes, requests)
+                admitted += self._refill(engine, bank, tickets, share[1],
+                                         valid, share[2])
                 if bank.occupied:
                     engine.stepwise_step(bank)
                     self.stats["chunks"] += 1
@@ -349,14 +440,30 @@ class ServingLoop:
                 self._fail_bank(key, error)
         return admitted
 
-    def _refill(self, engine, bank, tickets, free, admit) -> int:
-        """Splice admitted tickets into free lanes.  A request the engine
-        rejects (e.g. per-request tau on a seq key) fails ITS OWN ticket at
-        validation; a refill that fails after that fails the admitted group
-        — in both cases the popped tickets are accounted for, never leaked,
-        and the bank keeps serving."""
-        if not admit:
-            return 0
+    def _plan_refill(self, key, engine, bank, tickets, now, flush):
+        """The leader's refill decision for one key's bank: the tickets to
+        admit (validated) and the (preempted lanes, lanes, requests) every
+        rank applies."""
+        free = bank.free_lanes()
+        # preemptible (refine) lanes are BACKGROUND occupancy: when fresh
+        # non-preemptible arrivals outnumber the free lanes, count enough
+        # refine lanes as admission slots and vacate them below —
+        # background refinement never starves fresh-arrival admission
+        # (their warm start rides the re-enqueued ticket, so preempted
+        # progress degrades to the draft init, never to a cold start)
+        background = [i for i, r in enumerate(bank.requests)
+                      if r is not None and r.preemptible] \
+            if self.refiner is not None else []
+        extra = min(len(background),
+                    max(self.queue.pending_urgent(key) - len(free), 0))
+        admit = self.batcher.plan_refill(
+            self.queue, key, len(free) + extra, now=now,
+            active=bank.occupied > 0, flush=flush)
+        preempt = background[:max(len(admit) - len(free), 0)]
+        for lane in preempt:
+            self._preempt(key, bank, tickets, lane)
+        # a request the engine rejects (e.g. per-request tau on a seq key)
+        # fails ITS OWN ticket here
         valid = []
         for ticket in admit:
             try:
@@ -365,25 +472,35 @@ class ServingLoop:
                 self._fail_ticket(ticket, error)
             else:
                 valid.append(ticket)
-        if not valid:
+        lanes = bank.free_lanes()[:len(valid)]
+        return valid, (preempt, lanes, [t.request for t in valid])
+
+    def _refill(self, engine, bank, tickets, lanes, valid, requests) -> int:
+        """Splice ``requests`` into ``lanes`` (``valid`` their tickets; None
+        on a follower).  A refill that fails fails the admitted group — the
+        popped tickets are accounted for, never leaked, and the bank keeps
+        serving."""
+        if not requests:
             return 0
-        lanes = free[:len(valid)]
         now = self.queue.clock()
         for ticket in valid:
-            self._note_admit(ticket, now)
+            if ticket is not None:
+                self._note_admit(ticket, now)
         try:
-            engine.stepwise_refill(bank, lanes,
-                                   [t.request for t in valid])
+            engine.stepwise_refill(bank, lanes, requests)
         except Exception as error:  # noqa: BLE001
             for ticket in valid:
-                self._fail_ticket(ticket, error)
+                if ticket is not None:
+                    self._fail_ticket(ticket, error)
             return 0
         for lane, ticket in zip(lanes, valid):
             tickets[lane] = ticket
-            self.obs.tracer.async_instant("splice", ticket.seqno, lane=lane)
+            if ticket is not None:
+                self.obs.tracer.async_instant("splice", ticket.seqno,
+                                              lane=lane)
         self.stats["refills"] += 1
         self.stats["dispatches"] += 1
-        return len(valid)
+        return len(requests)
 
     def _preempt(self, key, bank, tickets, lane) -> None:
         """Vacate one preemptible (refine) lane for an urgent admission:
@@ -498,6 +615,15 @@ class ServingLoop:
         if self._thread is not None:
             raise RuntimeError("serving loop already started")
         self._stop_event.clear()
+        self._stopped = False
+
+        def follow():
+            # a follower pumps the leader's rounds until its stop header
+            try:
+                while not self._stopped:
+                    self.pump()
+            except BaseException as error:  # noqa: BLE001
+                self._abort(error)
 
         def run():
             try:
@@ -525,8 +651,9 @@ class ServingLoop:
                 # everything in flight and queued, record the error
                 self._abort(error)
 
-        self._thread = threading.Thread(target=run, name="serving-loop",
-                                        daemon=True)
+        self._thread = threading.Thread(
+            target=run if self.control.leader else follow,
+            name="serving-loop", daemon=True)
         self._thread.start()
         return self
 
@@ -544,10 +671,15 @@ class ServingLoop:
         ``result()`` callers."""
         if self._thread is None:
             return
+        if not self.control.leader:
+            self._thread.join()     # ends at the leader's stop header
+            self._thread = None
+            return
         self._stop_event.set()
         self._thread.join()
         self._thread = None
         if self.error is not None:
+            self._send_stop()
             return                  # worker aborted: everything failed already
         if drain:
             try:
@@ -568,6 +700,7 @@ class ServingLoop:
             self._abort(ShutdownError(
                 "serving loop stopped (drain=False) before completing "
                 "open tickets"))
+        self._send_stop()
 
     def __enter__(self) -> "ServingLoop":
         return self.start()

@@ -68,6 +68,25 @@ class EngineRegistry:
                     engine.bind_obs(self._obs, name=key.describe())
             return engine
 
+    def replace(self, key: EngineKey, engine: SamplingEngine) -> None:
+        """Swap in a replacement engine for ``key`` — the elastic-recovery
+        path: after device loss the supervisor builds a fresh engine on the
+        surviving sub-mesh and installs it here, so every later
+        ``get(key)`` routes to it.  The replacement joins the shared
+        observability bundle like a factory-built engine."""
+        with self._lock:
+            self._engines[key] = engine
+            obs = self._obs
+        if obs is not None:
+            engine.bind_obs(obs, name=key.describe())
+
+    def set_factory(self,
+                    factory: Callable[[EngineKey], SamplingEngine]) -> None:
+        """Replace the construction callback for keys not yet built: after
+        an elastic rebuild, NEW keys come up on the surviving sub-mesh."""
+        with self._lock:
+            self._factory = factory
+
     def engines(self) -> Dict[EngineKey, SamplingEngine]:
         """Snapshot of the engines constructed so far."""
         with self._lock:

@@ -61,6 +61,56 @@ def test_entry_points_raise_without_cuda_unless_cpu_asked(no_cuda):
     assert eng.device.type == "cpu"
 
 
+def test_distributed_never_falls_back_to_gloo_or_the_host_path(
+        no_cuda, monkeypatch, tmp_path):
+    """``init_distributed("cuda")`` without CUDA raises and leaves no
+    process group (no retry on gloo); a CPU group is gloo only when asked
+    for; and an engine on a mesh placement runs the sharded path — its
+    collectives counted — even on a mesh of one rank."""
+    import torch.distributed as dist
+
+    from repro_torch import comm
+    from repro_torch.launch import mesh
+    from repro_torch.sampling import Placement, SampleRequest
+
+    calls = []
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda backend, **kw: calls.append(backend))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.init_distributed("cuda", world_size=1, rank=0,
+                              init_method=f"file://{tmp_path}/a")
+    assert calls == [] and not dist.is_initialized()
+    assert mesh.backend_for("cuda") == "nccl"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--smoke", "--mesh", "debug", "--data-parallel", "1",
+                    "--model-parallel", "1"])
+    assert calls == []
+    monkeypatch.undo()
+
+    mesh.init_distributed("cpu", world_size=1, rank=0,
+                          init_method=f"file://{tmp_path}/b")
+    try:
+        assert dist.get_backend() == "gloo"
+        plc = Placement.for_mesh(mesh.make_mesh(
+            "debug", data_parallel=1, model_parallel=1, device_type="cpu"))
+        assert plc.is_sharded and plc.data_group is not None
+        eng = SamplingEngine(lambda p, x, t, y: x * 0.1, None,
+                             ddim_coeffs(4), get_sampler("taa"),
+                             sample_shape=(2,), device="cpu",
+                             placement=plc)
+        comm.reset()
+        eng.run_batch([SampleRequest(label=0, seed=1)])
+        assert comm.counts["all-gather"] > 0
+        assert comm.counts["all-reduce"] > 0
+        with pytest.raises(NotImplementedError, match="param_defs"):
+            SamplingEngine(lambda *a: None, {"w": torch.ones(1)},
+                           ddim_coeffs(4), get_sampler("taa"),
+                           sample_shape=(2,), device="cpu", placement=plc,
+                           param_defs={"w": None})
+    finally:
+        dist.destroy_process_group()
+
+
 def test_lm_train_driver_raises_without_cuda_unless_cpu_asked(no_cuda):
     from repro_torch.launch import train
 

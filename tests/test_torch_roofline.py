@@ -104,3 +104,18 @@ def test_counter_peak_exact_on_a_chain_of_allocations():
     assert (c.live, c.peak) == (4000, 28000)
     assert c.bytes == (4000 + 4000) + (6000 + 12000) + (12000 + 12000)
     assert c.by_op["empty"][2] == 0 and c.by_op["slice"][2] == 0
+
+
+def test_collective_bytes_take_the_hlo_parsers_kinds():
+    """The port counts collective bytes where it issues them
+    (``repro_torch.comm``); ``collective_bytes`` reports them under the
+    kinds the reference's ``parse_collective_bytes`` reads from HLO."""
+    from repro_torch import comm
+
+    got = RA.collective_bytes({"all-gather": 4096, "all-reduce": 4,
+                               "broadcast": 999})
+    assert tuple(got) == tuple(JRA.parse_collective_bytes(""))
+    assert got == {"all-gather": 4096, "all-reduce": 4, "reduce-scatter": 0,
+                   "all-to-all": 0, "collective-permute": 0}
+    comm.reset()
+    assert RA.collective_bytes() == dict.fromkeys(RA.COLLECTIVES, 0)
