@@ -176,11 +176,30 @@ is not 0):
    (``_rebuild``: ``fetch_bank`` -> ``plan_elastic`` -> a new mesh and
    engine -> ``adopt_bank``): every ticket bit for bit the uninterrupted
    drain's; ``rebuild_wall_s`` and the bytes moved printed.
+11. the DiT tensor-parallel over ``model`` (``SamplingEngine(param_defs=
+   dit_defs)``: each rank's blocks of the parameters, ``dit_apply`` on
+   them with its all-reduces and all-gathers), last.  (a) a world of one
+   over NCCL on a (1, 1) ``debug`` mesh, phase 10 (a)'s geometry and TF32,
+   fused and staged: bit for bit the host placement, equal iters, nfe,
+   polls and K1-K3 launches, the NCCL collectives by the formula (2L
+   all-reduces and 9L + 7 all-gathers a DiT call, + a poll all-reduce an
+   iteration and 5 output all-gathers a dispatch); one DiT call's ms host
+   / TP and each collective's ms at the solve's shapes (CUDA events).
+   (b) ``python -m repro_torch.launch.dryrun --parataa --mesh both`` in a
+   subprocess: the ParaTAA cell on the pod (256) and multi-pod (512)
+   meshes in a fake world, modeled (per-chip FLOPs, bytes, peak and
+   ``fits_hbm``, collective bytes by kind and by link).  (c) two
+   processes on the one card in a gloo group (gloo takes CUDA tensors),
+   ``debug`` with model 2: DiT-XL's width (4 of its layers), its 16
+   heads split 8 a rank, against the host placement in float32 at 16
+   tokens: eps within 1e-5, trajectories within 1e-4, iters and nfe
+   equal (fused).
 
 Then one JSON line of per-kernel numbers (K1-K3 with ``wrapper_launches``,
 phase 7's, ``ssm_wrapper_launches``, phase 8's,
-``use_pallas_auto_launches``, phase 9 (b)'s, and ``mesh_launches``, phase
-10 (a)'s mesh run; K3 with ``tf32_launches``, phase 9 (a)'s), and last the
+``use_pallas_auto_launches``, phase 9 (b)'s, ``mesh_launches``, phase
+10 (a)'s mesh run, and ``tp_launches``, phase 11 (a)'s TP run; K3 with
+``tf32_launches``, phase 9 (a)'s), and last the
 line
 ``{"ok": true, "device": {...}}``.  Without CUDA, or run from a directory
 without the repository's ``src/``, it fails before printing any result.
@@ -2547,6 +2566,354 @@ def moe_expert_parallel():
     return dict(local_ms=local_ms, ep_ms=ep_ms, collectives=counts)
 
 
+# --- phase 11: the tensor-parallel DiT and the production dry-run ----------
+
+#: (c): two gloo ranks on the one card, serve.main's 16-token geometry,
+#: DiT-XL's width at 4 of its 28 layers (every collective goes through
+#: host memory: the full depth takes ~25 s a run)
+TP_GLOO_TOKENS, TP_GLOO_LAYERS = 16, 4
+
+
+def dit_counts(L: int) -> dict:
+    """Collectives of one tensor-parallel DiT call (``diffusion/dit.py``)
+    whose every leaf divides its mesh: 2L all-reduces over model; L + 1
+    all-gathers over model and 8L + 6 over the data axes."""
+    return {"all-reduce": 2 * L, "all-gather": (L + 1) + (8 * L + 6)}
+
+
+def tp_engine_runs(cfg, params, placement, requests, *, num_tokens, defs,
+                   strict=True, modes=("fused", "staged")):
+    """``run_batch`` of ``requests`` on the host placement, then on
+    ``placement`` with ``param_defs=defs`` (the tensor-parallel DiT), for
+    each round of ``modes``; each run's K1-K3 launches and collectives
+    counted from 0 just before it.  Returns {mode: {label: run}}."""
+    from repro_torch import comm
+    from repro_torch.core import ddim_coeffs
+    from repro_torch.kernels import taa_update
+    from repro_torch.launch import serve
+    from repro_torch.sampling import SamplingEngine, get_sampler
+
+    device = next(iter(params["blocks"].values())).device
+    coeffs = ddim_coeffs(T_STEPS)
+    out = {}
+    for mode in modes:
+        spec = get_sampler("taa", fuse_round=mode == "fused", order_k=ORDER_K,
+                           history_m=HISTORY_M)
+        for label, plc, pdefs_ in (("host", None, None),
+                                   ("tp", placement, defs)):
+            engine = SamplingEngine(
+                serve.make_eps_apply(cfg), params, coeffs, spec,
+                sample_shape=(num_tokens, cfg.latent_dim), device=device,
+                placement=plc, param_defs=pdefs_)
+            if strict:
+                strict_solves(engine)
+            taa_update.reset_launches()
+            comm.reset()
+            t0 = time.monotonic()
+            res = engine.run_batch(requests, batch_size=len(requests))
+            wall = time.monotonic() - t0
+            d = engine.last_dispatches[0]
+            out.setdefault(mode, {})[label] = dict(
+                results=res, wall_s=wall, launches=dict(taa_update.launches),
+                comm={k: comm.counts[k] for k in ("all-gather",
+                                                  "all-reduce")},
+                iters=d["device_iters"], polls=d["blocking_polls"],
+                sharded=engine.denoiser_sharded)
+    return out
+
+
+def rel_traj(a, b) -> float:
+    import numpy as np
+
+    return float(max(np.linalg.norm(x.trajectory - y.trajectory)
+                     / max(np.linalg.norm(y.trajectory), 1e-30)
+                     for x, y in zip(a, b)))
+
+
+def tensor_parallel_path(phase10=None):
+    """Phase 11: the DiT tensor-parallel over ``model`` (``SamplingEngine(
+    param_defs=dit_defs)``, ``Placement.shard_params``).  (a) a world of
+    one over NCCL on a (1, 1) ``debug`` mesh at full DiT-XL width, phase
+    10 (a)'s requests and TF32: fused and staged, bit for bit the host
+    placement, equal iters, nfe, polls and K1-K3 launches, the collectives
+    by the formula; the DiT's ms a call host / TP and its collectives' ms
+    at the solve's shapes (CUDA events).  (b) ``python -m
+    repro_torch.launch.dryrun --parataa --mesh both`` in a subprocess:
+    the ParaTAA cell on the pod (256) and multi-pod (512) meshes in a
+    fake world, modeled.  (c) two gloo ranks on the one card (``debug``,
+    model 2: the heads split two ways; 4 layers) against the host
+    placement in float32 at 16 tokens, fused: eps within 1e-5,
+    trajectories within 1e-4, iters and nfe equal."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.diffusion import dit
+    from repro_torch.diffusion.convert import dit_init
+    from repro_torch.launch.backend import (apply_backend_tune, read_settings,
+                                            write_settings)
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.sampling import Placement, SampleRequest
+
+    cuda = torch.device("cuda")
+    rdv = tempfile.mkdtemp(prefix="chip_smoke_rdv_")
+    backend = init_distributed("cuda", world_size=1, rank=0,
+                               init_method=f"file://{rdv}/store",
+                               timeout_s=300)
+    check(backend == "nccl", f"phase 11: backend {backend}")
+    plc = Placement.for_mesh(make_mesh("debug", data_parallel=1,
+                                       model_parallel=1, device_type="cuda"))
+    cfg = get_arch("dit-xl")
+    L = cfg.num_layers
+    params = dit_init(cfg, SEED, cuda, ada_scale=ADA_SCALE)
+    defs = dit.dit_defs(cfg)
+    rng = np.random.default_rng(SEED)
+    requests = [SampleRequest(label=int(rng.integers(0, cfg.num_classes)),
+                              seed=int(rng.integers(1 << 30)))
+                for _ in range(REQUESTS)]
+    before = read_settings()
+    apply_backend_tune(["--backend-tune"])
+    out = {}
+    try:
+        runs = tp_engine_runs(cfg, params, plc, requests,
+                              num_tokens=NUM_TOKENS, defs=defs)
+        per_call = dit_counts(L)
+        for mode, r in runs.items():
+            host, tp = r["host"], r["tp"]
+            iters = tp["iters"]
+            print(f"phase 11 (a) {mode}: TP engine on {plc.describe(True)}: "
+                  f"iters host {host['iters']} / TP {iters}, nfe "
+                  f"{[x.nfe for x in host['results']]} / "
+                  f"{[x.nfe for x in tp['results']]}; K1-K3 launches "
+                  f"{host['launches']} / {tp['launches']}; polls "
+                  f"{host['polls']} / {tp['polls']}; NCCL collectives "
+                  f"{tp['comm']} ({per_call} a DiT call); walls s host "
+                  f"{host['wall_s']}, TP {tp['wall_s']}")
+            check(tp["sharded"], f"phase 11 (a) {mode}: DiT not sharded")
+            check(same_results(tp["results"], host["results"]),
+                  f"phase 11 (a) {mode}: TP at model 1 not bit for bit")
+            check(tp["launches"] == host["launches"]
+                  and iters == host["iters"] and tp["polls"] == host["polls"],
+                  f"phase 11 (a) {mode}: launches/iters/polls differ")
+            want = {"taa_round": iters} if mode == "fused" else \
+                {"taa_gram": iters, "taa_apply": iters}
+            check(all(tp["launches"][k] == v for k, v in want.items()),
+                  f"phase 11 (a) {mode}: launches {tp['launches']}")
+            # + the poll flag's all-reduce an iteration and the 5 output
+            # all-gathers of the dispatch
+            check(tp["comm"] == {
+                "all-reduce": iters * (per_call["all-reduce"] + 1),
+                "all-gather": iters * per_call["all-gather"] + 5},
+                f"phase 11 (a) {mode}: collectives {tp['comm']}")
+            out[mode] = dict(iters=iters, launches=tp["launches"],
+                             comm=tp["comm"], wall_host_s=host["wall_s"],
+                             wall_tp_s=tp["wall_s"])
+        # one DiT call at the solve's shape (2 lanes x 25 window rows), the
+        # whole tree against the (1, 1) mesh's blocks, and its collectives
+        rows = REQUESTS * T_STEPS
+        gen = torch.Generator(device=cuda).manual_seed(SEED)
+        x = torch.randn(rows, NUM_TOKENS, cfg.latent_dim, generator=gen,
+                        device=cuda)
+        t = torch.linspace(10.0, 990.0, rows, device=cuda)
+        y = torch.arange(rows, device=cuda) % cfg.num_classes
+        sharded = plc.shard_params(params, defs)
+        with torch.inference_mode():
+            host_ms = cuda_ms(lambda: dit.dit_apply(params, cfg, x, t, y),
+                              warmup=2, samples=5, reps=2)
+            tp_ms = cuda_ms(lambda: dit.dit_apply(sharded, cfg, x, t, y),
+                            warmup=2, samples=5, reps=2)
+            partial = torch.randn(rows, NUM_TOKENS, cfg.d_model,
+                                  generator=gen, device=cuda)
+            mod = torch.randn(rows, 6 * cfg.d_model, generator=gen,
+                              device=cuda)
+            wq = sharded["blocks"]["wq"][0]
+            reduce_ms = cuda_ms(lambda: sharded.model_sum("blocks/wo",
+                                                          partial))
+            ada_ms = cuda_ms(lambda: sharded.model_cat("blocks/ada", mod))
+            fsdp_ms = cuda_ms(lambda: sharded.gather("blocks/wq", wq))
+        print(f"phase 11 (a) DiT-XL call at {rows} x {NUM_TOKENS} tokens, "
+              f"TF32: host tree {host_ms} ms, TP blocks on the (1, 1) mesh "
+              f"{tp_ms} ms (CUDA events, median); its NCCL all-reduce of a "
+              f"{partial.numel() * 4} B partial {reduce_ms} ms (x {2 * L} a "
+              f"call), the adaLN all-gather {ada_ms} ms (x {L + 1}), one "
+              f"FSDP all-gather of a layer's wq ({wq.numel() * 4} B) "
+              f"{fsdp_ms} ms (x {8 * L + 6} leaves); phase 10 (a): window "
+              f"all-gather {phase10 and phase10.get('gather_ms')} ms, poll "
+              f"all-reduce {phase10 and phase10.get('reduce_ms')} ms")
+        out.update(dit_ms=dict(host=host_ms, tp=tp_ms), reduce_ms=reduce_ms,
+                   ada_gather_ms=ada_ms, fsdp_gather_ms=fsdp_ms)
+        del sharded, partial, mod, x
+    finally:
+        write_settings(before)
+        dist.destroy_process_group()
+        shutil.rmtree(rdv, ignore_errors=True)
+    del params
+    free_card()
+    out["dryrun"] = production_dryrun()
+    out["gloo"] = tp_on_gloo()
+    return out
+
+
+def production_dryrun():
+    """Phase 11 (b): the dry-run's ParaTAA cell on the production meshes,
+    in a subprocess (a fake world of 256, and one of 512 ranks), at full
+    width."""
+    import os
+    import shutil
+
+    out_dir = ROOT / "build" / "chip_smoke_dryrun_mesh"
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--parataa",
+         "--mesh", "both", "--out", str(out_dir)], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0,
+          f"phase 11 (b): dry-run failed: {proc.stderr[-2000:]}")
+    recs = {}
+    for label in ("single", "multi"):
+        rec = json.loads((out_dir / f"dit-xl__parataa_serve__{label}.json")
+                         .read_text())
+        print(f"phase 11 (b) dry-run --mesh {label} (modeled, rank 0 of "
+              f"{rec.get('chips')}): status {rec['status']}, {rec.get('placement')}, "
+              f"{rec.get('n_samples')} requests, per chip "
+              f"{rec.get('flops_per_chip')} flop, {rec.get('bytes_per_chip')} B, "
+              f"peak {rec.get('peak_bytes')} B (fits_hbm "
+              f"{rec.get('fits_hbm')}); collectives "
+              f"{rec.get('collective_breakdown')} B, by link "
+              f"{rec.get('collective_by_link')}; compute "
+              f"{rec.get('compute_s')} s (TF32 {rec.get('compute_s_tf32')}), "
+              f"memory {rec.get('memory_s')} s, collective "
+              f"{rec.get('collective_s')} s -> {rec.get('dominant')}; "
+              f"model_flops_ratio {rec.get('model_flops_ratio')}")
+        check(rec["status"] == "ok" and rec["collective_bytes_per_chip"] > 0
+              and "peak_bytes" in rec and "fits_hbm" in rec,
+              f"phase 11 (b): {label} record {rec.get('status')}")
+        recs[label] = {k: rec[k] for k in (
+            "chips", "flops_per_chip", "peak_bytes", "fits_hbm",
+            "collective_breakdown", "collective_by_link", "compute_s",
+            "compute_s_tf32", "memory_s", "collective_s", "dominant",
+            "model_flops_ratio")}
+    check((recs["single"]["chips"], recs["multi"]["chips"]) == (256, 512),
+          f"phase 11 (b): chips {recs}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"phase 11 (b) in {time.monotonic() - t0} s")
+    return recs
+
+
+def tp_on_gloo():
+    """Phase 11 (c): two processes on the one card, a gloo group
+    (``init_distributed("cpu")``: gloo takes the CUDA tensors of every
+    collective the TP DiT issues), ``debug`` with data 1 x model 2, each
+    rank computing its 8 heads' columns of DiT-XL (full width, 4 layers):
+    eps and ``run_batch`` against the host placement in each rank,
+    float32 (TF32 off)."""
+    import os
+    import shutil
+    import tempfile
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_gloo_"))
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-gloo-rank",
+         str(r), str(work)], cwd=ROOT, env=dict(os.environ),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    check(all(p.returncode == 0 for p in procs),
+          f"phase 11 (c): a rank failed: {[log[-2000:] for log in logs]}")
+    outs = [json.loads((work / f"rank{r}.json").read_text())
+            for r in range(2)]
+    shutil.rmtree(work, ignore_errors=True)
+    for r, o in enumerate(outs):
+        m = o["fused"]
+        print(f"phase 11 (c) gloo rank {r} of 2 on the one card, "
+              f"{o['describe']}, DiT-XL width at {o['wq'][0]} layers: wq "
+              f"block {o['wq']}; eps rel err vs the "
+              f"host tree {o['eps_rel']}; run_batch fused ({o['tokens']} "
+              f"tokens, T={T_STEPS}, float32) trajectories rel err "
+              f"{m['rel']}, iters {m['iters']} (host {m['host_iters']}), "
+              f"nfe equal {m['same_nfe']}; collectives {m['comm']}; walls "
+              f"s host / TP {m['walls']}")
+        check(o["eps_rel"] < 1e-5, f"phase 11 (c): eps {o['eps_rel']}")
+        check(m["rel"] < 1e-4 and m["iters"] == m["host_iters"]
+              and m["same_nfe"], f"phase 11 (c): {m}")
+    print(f"phase 11 (c) in {time.monotonic() - t0} s")
+    return outs
+
+
+def tp_gloo_rank(rank: int, work: Path) -> None:
+    """One rank of phase 11 (c) (``chip_smoke.py --tp-gloo-rank R DIR``)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.diffusion import dit
+    from repro_torch.diffusion.convert import ADA_ZERO
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.models.pdefs import init_on_device
+    from repro_torch.sampling import Placement, SampleRequest
+
+    cuda = torch.device("cuda")
+    torch.cuda.set_device(0)
+    init_distributed("cpu", world_size=2, rank=rank,
+                     init_method=f"file://{work}/store", timeout_s=300)
+    # gloo groups; the tensors live on the card
+    plc = Placement.for_mesh(make_mesh("debug", data_parallel=1,
+                                       model_parallel=2, device_type="cpu"))
+    cfg = dataclasses.replace(get_arch("dit-xl"), num_layers=TP_GLOO_LAYERS)
+    params = init_on_device(dit.dit_defs(cfg), SEED, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(SEED + 1)
+    for name in ADA_ZERO:
+        leaf = params["blocks"][name] if name == "ada" else params[name]
+        leaf.normal_(0.0, ADA_SCALE, generator=gen)
+    defs = dit.dit_defs(cfg)
+    rows = REQUESTS * T_STEPS
+    x = torch.randn(rows, TP_GLOO_TOKENS, cfg.latent_dim, generator=gen,
+                    device=cuda)
+    t = torch.linspace(10.0, 990.0, rows, device=cuda)
+    y = torch.arange(rows, device=cuda) % cfg.num_classes
+    sharded = plc.shard_params(params, defs)
+    with torch.inference_mode():
+        want = dit.dit_apply(params, cfg, x, t, y)
+        got = dit.dit_apply(sharded, cfg, x, t, y)
+    eps_rel = float((got - want).norm() / want.norm())
+    rng = np.random.default_rng(SEED)
+    requests = [SampleRequest(label=int(rng.integers(0, cfg.num_classes)),
+                              seed=int(rng.integers(1 << 30)))
+                for _ in range(REQUESTS)]
+    runs = tp_engine_runs(cfg, params, plc, requests,
+                          num_tokens=TP_GLOO_TOKENS, defs=defs, strict=False,
+                          modes=("fused",))
+    res = {"describe": plc.describe(True),
+           "wq": list(sharded["blocks"]["wq"].shape), "eps_rel": eps_rel,
+           "tokens": TP_GLOO_TOKENS}
+    for mode, r in runs.items():
+        host, tp = r["host"], r["tp"]
+        res[mode] = dict(
+            rel=rel_traj(tp["results"], host["results"]), iters=tp["iters"],
+            host_iters=host["iters"],
+            same_nfe=[a.nfe for a in tp["results"]]
+            == [b.nfe for b in host["results"]],
+            comm=tp["comm"], walls=[host["wall_s"], tp["wall_s"]])
+    (work / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
 def model_cases():
     """The phase-4 calls, at the full widths of models this repo configures;
     inputs on the card from a numpy seed, at the JAX tests' magnitudes
@@ -2989,13 +3356,21 @@ def main() -> int:
         mode = "fused" if name == "taa_round" else "staged"
         next(r for r in rows if r["name"] == name)["mesh_launches"] = \
             mesh[mode]["launches"][name]
+    t11 = time.monotonic()
+    free_card()
+    tp = tensor_parallel_path(mesh)
+    for name in ("taa_gram", "taa_apply", "taa_round"):
+        mode = "fused" if name == "taa_round" else "staged"
+        next(r for r in rows if r["name"] == name)["tp_launches"] = \
+            tp[mode]["launches"][name]
     print(f"phase seconds: build {t1 - t0}, taa kernels {t2 - t1}, DiT-XL "
           f"serving and TF32 {t3 - t2}, model kernels {t4 - t3}, DiT-XL "
           f"stepwise serving {t5 - t4}, --use-pallas {t5b - t5}, DiT-XL "
           f"train-checkpoint-serve {t6 - t5b}, qwen3-0.6b wrapper/LM "
           f"{t7 - t6}, mamba2/recurrentgemma/MoE {t8 - t7}, dry-run against "
           f"the card {t9 - t8}, examples {t10 - t9}, placement on a world "
-          f"of one {time.monotonic() - t10}")
+          f"of one {t11 - t10}, the tensor-parallel DiT and the production "
+          f"dry-run {time.monotonic() - t11}")
     # the card again, so that the end of a long log still names it
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": rows}))
@@ -3006,4 +3381,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-gloo-rank"]:
+        tp_gloo_rank(int(sys.argv[2]), Path(sys.argv[3]))
+        sys.exit(0)
     sys.exit(main())

@@ -12,8 +12,10 @@ Train a tiny DiT on synthetic latents, then:
      ``SamplingEngine``, the requests the solver's lane axis;
   4. give that engine an explicit ``Placement`` on a rank mesh
      (``repro_torch.launch.mesh``, a world of one rank here: gloo on the
-     CPU, NCCL on the card): the request axis over ``data``, bit for bit
-     the host placement, its collectives counted (``repro_torch.comm``);
+     CPU, NCCL on the card): the request axis over ``data``, the DiT
+     tensor-parallel over ``model`` on each rank's blocks of its weights,
+     bit for bit the host placement at one rank, its collectives counted
+     (``repro_torch.comm``);
   5. serve the same requests through the ``repro_torch.serving`` layer
      (``RequestQueue`` -> ``Ticket`` futures, a ``ServingLoop`` draining
      fixed-slot batches), bit for bit ``run_batch``;
@@ -150,10 +152,11 @@ def main(argv=None):
     def eps_apply(params, xw, taus, labels):
         return dit.dit_apply(params, cfg, xw, taus, labels)
 
-    def engine(spec, placement=None):
+    def engine(spec, placement=None, param_defs=None):
         return SamplingEngine(eps_apply, params, coeffs, spec,
                               sample_shape=(16, cfg.latent_dim),
-                              device=device, placement=placement)
+                              device=device, placement=placement,
+                              param_defs=param_defs)
 
     taa_engine = engine(get_sampler("taa"))
     requests = [SampleRequest(label=i % cfg.num_classes, seed=100 + i)
@@ -170,15 +173,19 @@ def main(argv=None):
     # --- 4. placement: the same engine on a rank mesh -----------------------
     # one process = a world of one rank (torchrun starts more: serve.py
     # --mesh); the engine holds its data shard's lanes and all-gathers
-    # what the caller reads, so the results are the host placement's
+    # what the caller reads, and with the DiT's ParamSpec tree each rank
+    # keeps its blocks of the weights (tensor-parallel over `model`): at
+    # one rank the results are the host placement's, bit for bit
     owned = not dist.is_initialized()
     init_distributed(device, world_size=1, rank=0)
     mesh = make_mesh("debug", data_parallel=1, model_parallel=1,
                      device_type=device.type)
-    meshed = engine(get_sampler("taa"), Placement.for_mesh(mesh))
+    meshed = engine(get_sampler("taa"), Placement.for_mesh(mesh),
+                    dit.dit_defs(cfg))
     comm.reset()
     mesh_results = meshed.run_batch(requests, batch_size=4)
-    print(f"placement: {meshed.placement.describe()}; collectives "
+    print(f"placement: {meshed.placement.describe(meshed.denoiser_sharded)}"
+          f"; collectives "
           f"{comm.counts}; bit for bit the host placement: "
           f"{same(mesh_results, results, exact=True)}")
     assert same(mesh_results, results, exact=True)

@@ -8,7 +8,9 @@ HLO, so the call sites count instead.  ``counts[kind]`` is the number of
 calls and ``nbytes[kind]`` the operand bytes a rank contributed (the local
 shard of an all-gather, the reduced tensor of an all-reduce, the
 broadcast tensor; a broadcast control object counts no bytes), under the
-HLO's names.
+HLO's names.  ``group_bytes[(kind, ranks)]`` splits the same bytes by the
+global ranks of the group they crossed, which is what prices a collective
+on the links its ranks span (``roofline.analysis.link_bytes``).
 
 Each call is a plain ``torch.distributed`` call on a process group: NCCL
 on the card, gloo on the CPU.  An all-gather is exact data movement (no
@@ -17,7 +19,7 @@ unsharded one.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List, Tuple
 
 import torch
 import torch.distributed as dist
@@ -29,6 +31,7 @@ _WIRE = {torch.bool: torch.uint8}
 
 counts = {k: 0 for k in KINDS}
 nbytes = {k: 0 for k in KINDS}
+group_bytes: Dict[Tuple[str, Tuple[int, ...]], int] = {}
 
 
 def reset() -> None:
@@ -36,11 +39,16 @@ def reset() -> None:
     for k in KINDS:
         counts[k] = 0
         nbytes[k] = 0
+    group_bytes.clear()
 
 
-def _count(kind: str, t: torch.Tensor) -> None:
+def _count(kind: str, t: torch.Tensor, group) -> None:
+    n = t.numel() * t.element_size()
     counts[kind] += 1
-    nbytes[kind] += t.numel() * t.element_size()
+    nbytes[kind] += n
+    key = (kind, tuple(dist.get_process_group_ranks(
+        group if group is not None else dist.group.WORLD)))
+    group_bytes[key] = group_bytes.get(key, 0) + n
 
 
 def group_size(group) -> int:
@@ -53,7 +61,7 @@ def all_gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     global ranks, and a mesh lays its ranks out in increasing order).
     bool moves as its bytes (gloo takes no bool)."""
     x = x.contiguous()
-    _count("all-gather", x)
+    _count("all-gather", x, group)
     wire = x.view(_WIRE.get(x.dtype, x.dtype))
     parts: List[torch.Tensor] = [torch.empty_like(wire)
                                  for _ in range(group_size(group))]
@@ -64,7 +72,7 @@ def all_gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
 def all_reduce_min(x: torch.Tensor, group) -> torch.Tensor:
     """Elementwise minimum of ``x`` over ``group`` (a new tensor)."""
     out = x.clone()
-    _count("all-reduce", out)
+    _count("all-reduce", out, group)
     dist.all_reduce(out, op=dist.ReduceOp.MIN, group=group)
     return out
 
@@ -72,14 +80,14 @@ def all_reduce_min(x: torch.Tensor, group) -> torch.Tensor:
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """Elementwise sum of ``x`` over ``group`` (a new tensor)."""
     out = x.clone()
-    _count("all-reduce", out)
+    _count("all-reduce", out, group)
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out
 
 
 def broadcast_(x: torch.Tensor, src: int, group=None) -> torch.Tensor:
     """``x`` overwritten in place with global rank ``src``'s."""
-    _count("broadcast", x)
+    _count("broadcast", x, group)
     dist.broadcast(x, src=src, group=group)
     return x
 

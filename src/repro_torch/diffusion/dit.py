@@ -10,6 +10,20 @@ Parameters keep the JAX package's layouts (``wq`` (d, H, hd), ``wo``
 converts leaf for leaf (:mod:`repro_torch.diffusion.convert`).  The large
 products stay ``torch.matmul``/``einsum``, as the JAX package leaves them
 to XLA.
+
+On a rank mesh ``dit_apply`` takes a rank's shards instead
+(:class:`repro_torch.models.shardctx.ShardedParams`, from
+``Placement.shard_params(params, dit_defs(cfg))``) and runs the Megatron
+forward the JAX package's GSPMD derives from ``LOGICAL_RULES``: the adaLN
+products give this rank's contiguous columns of the modulation, rebuilt by
+one all-gather over ``model``; ``wq``/``wk``/``wv`` are column-parallel
+over the rank's heads and ``wo`` row-parallel, its partial sums added by
+one all-reduce over ``model`` (the MLP likewise); every leaf's ``embed``
+rows are all-gathered over the data axes just before the block that uses
+them.  A call issues 2L all-reduces and L + 1 all-gathers over ``model``
+and 8L + 6 all-gathers over the data axes (every leaf that its mesh
+divides).  At ``model`` = 1 the products are the host path's on the same
+tensors, bit for bit.  The sharded forward is inference only.
 """
 from __future__ import annotations
 
@@ -25,6 +39,8 @@ from repro_torch.device import constant, to_device
 from repro_torch.models.layers import (layernorm_noaffine, mlp,
                                        sincos_positions, sinusoidal_embed)
 from repro_torch.models.pdefs import ParamSpec
+from repro_torch.models.shardctx import ShardedParams
+from repro_torch.tree import leaves
 
 TEMB_DIM = 256
 
@@ -71,7 +87,8 @@ def _modulate(x, shift, scale):
 
 def _dit_attention(p, x):
     """Full (non-causal) attention, scores and softmax in float32.
-    x: (B, N, d); p["wq"|"wk"|"wv"] (d, H, hd); p["wo"] (H, hd, d)."""
+    x: (B, N, d); p["wq"|"wk"|"wv"] (d, H, hd); p["wo"] (H, hd, d) — on a
+    model rank its H heads' blocks, and the result its partial sum."""
     b, n, d = x.shape
     _, H, hd = p["wq"].shape
 
@@ -97,42 +114,69 @@ def dit_apply(params, cfg: ArchConfig, latents, t, y=None, *,
               remat: bool = False):
     """eps prediction.  latents: (B, N, latent_dim); t: (B,) float
     timesteps; y: (B,) int class labels (None -> the null class).
+    ``params`` is the parameter tree, or a rank's :class:`ShardedParams`
+    on a mesh (the tensor-parallel forward: module docstring).
     ``remat`` recomputes each block's activations in the backward pass
     instead of keeping them (the reference's ``jax.checkpoint(block)``)."""
+    tp = params if isinstance(params, ShardedParams) else None
+    tree = params
+    if tp is not None:
+        tree = tp.local
+        if torch.is_grad_enabled() and any(
+                x.requires_grad for x in leaves(tree)):
+            raise NotImplementedError(
+                "the tensor-parallel DiT is forward-only: its backward is "
+                "ROADMAP Queue 1 item 3, step 2 (the tensor-parallel "
+                "backward and the DiT's train_4k cell on a mesh)")
+
+    def full(path, x):
+        return tp.gather(path, x) if tp is not None else x
+
+    def cat(path, x):
+        return tp.model_cat(path, x) if tp is not None else x
+
+    def reduce(path, x):
+        return tp.model_sum(path, x) if tp is not None else x
+
     b, n, _ = latents.shape
     d = cfg.d_model
-    x = latents @ params["in_proj"]
+    x = latents @ full("in_proj", tree["in_proj"])
     x = x + _positions(n, d, x.dtype, x.device)[None]
 
     temb = sinusoidal_embed(t, TEMB_DIM).to(x.dtype)
-    cond = F.silu(temb @ params["t_mlp1"]) @ params["t_mlp2"]
+    cond = F.silu(temb @ full("t_mlp1", tree["t_mlp1"])) \
+        @ full("t_mlp2", tree["t_mlp2"])
     if y is None:
         y = torch.full((b,), cfg.num_classes, dtype=torch.long,
                        device=x.device)                       # null class
-    cond = F.silu(cond + params["y_embed"][y])
+    cond = F.silu(cond + full("y_embed", tree["y_embed"])[y])
 
     def block(p, p_mlp, x):
-        s1, sc1, g1, s2, sc2, g2 = (cond @ p["ada"]).chunk(6, dim=-1)
+        mod = cat("blocks/ada", cond @ p["ada"])
+        s1, sc1, g1, s2, sc2, g2 = mod.chunk(6, dim=-1)
         h = _dit_attention(p, _modulate(layernorm_noaffine(x), s1, sc1))
-        x = x + g1[:, None, :] * h
+        x = x + g1[:, None, :] * reduce("blocks/wo", h)
         h = mlp(p_mlp, _modulate(layernorm_noaffine(x), s2, sc2), "gelu")
-        return x + g2[:, None, :] * h
+        return x + g2[:, None, :] * reduce("blocks/mlp/wo", h)
 
     # each stacked (L, ...) leaf split into its layers once: the backward of
     # unbind stacks the layers' grads in one pass, where the backward of
     # indexing the stack per layer fills a zero copy of the whole stack for
     # every layer and sums the L copies (O(L^2) traffic)
-    layers = {k: v.unbind(0) for k, v in params["blocks"].items()
+    layers = {k: v.unbind(0) for k, v in tree["blocks"].items()
               if k != "mlp"}
-    layers_mlp = {k: v.unbind(0) for k, v in params["blocks"]["mlp"].items()}
+    layers_mlp = {k: v.unbind(0) for k, v in tree["blocks"]["mlp"].items()}
     for i in range(cfg.num_layers):
-        p = {k: v[i] for k, v in layers.items()}
-        p_mlp = {k: v[i] for k, v in layers_mlp.items()}
+        # a sharded leaf's embed rows gathered just before its block
+        p = {k: full(f"blocks/{k}", v[i]) for k, v in layers.items()}
+        p_mlp = {k: full(f"blocks/mlp/{k}", v[i])
+                 for k, v in layers_mlp.items()}
         x = (checkpoint(block, p, p_mlp, x, use_reentrant=False) if remat
              else block(p, p_mlp, x))
-    sh, sc = (cond @ params["final_ada"]).chunk(2, dim=-1)
+    sh, sc = cat("final_ada", cond @ full("final_ada", tree["final_ada"])
+                 ).chunk(2, dim=-1)
     x = _modulate(layernorm_noaffine(x), sh, sc)
-    return x @ params["out_proj"]
+    return x @ full("out_proj", tree["out_proj"])
 
 
 def dit_loss(params, cfg: ArchConfig, batch, abar_full):

@@ -1,10 +1,22 @@
-"""One-card dry-run: the cost and the peak memory of every (architecture x
-input shape) cell on one H100, counted on ``meta`` tensors (shapes only,
-nothing computed, no card needed) — the JAX package's
-``repro.launch.dryrun`` without its production meshes (``chips`` 1,
-``mesh`` "single").
+"""Dry-run: the cost and the peak memory of every (architecture x input
+shape) cell, counted on ``meta`` tensors (shapes only, nothing computed,
+no card needed) — the JAX package's ``repro.launch.dryrun``.  ``--mesh``:
+
+* ``one`` (the default): one H100, every cell; records say ``"mesh":
+  "one-card"``, ``chips`` 1;
+* ``single`` / ``multi``: the production meshes as the reference names
+  them, ``pod`` (16 x 16 = 256 ranks) and ``multi-pod`` (2 x 16 x 16 =
+  512), built in a ``fake`` world (``launch.mesh.fake_mesh``: this
+  process is rank 0 and no collective moves data) and counted as rank
+  0's program.  The ParaTAA cell runs there through the sharded engine's
+  own code path (requests over the data axes, the DiT tensor-parallel over
+  ``model``); the LM cells and the DiT's train step wait for their
+  tensor-parallel forms and are written ``"status": "skipped"`` with the
+  ROADMAP item that brings them.  ``both`` runs ``single`` and ``multi``
+  side by side, each in a process of its own.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out build/dryrun
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --parataa --mesh both
     PYTHONPATH=src python -m repro_torch.roofline.report build/dryrun
 
 Each cell runs its step as the drivers run it (``launch.steps``: train =
@@ -37,14 +49,19 @@ reference's are XLA's after fusion).  The roofline's compute term takes
 bf16 products at 989 TFLOP/s and float32 ones at 67 (``compute_s``) or,
 with TF32 on, 495 (``compute_s_tf32``).  The collective column is what
 the cell's run issued through ``repro_torch.comm``
-(``roofline.analysis.collective_bytes``): 0 on one rank without a mesh.  The reference's ``lower_s``/``compile_s`` are null (nothing is
-compiled); ``count_s`` is the seconds of the counted runs.
+(``roofline.analysis.collective_bytes``: 0 on one card), priced by the
+link each group crosses (``roofline.analysis.link_bytes``: NVLink inside
+a node of 8 ranks, the network between nodes) — modeled, not measured.
+The reference's ``lower_s``/``compile_s`` are null (nothing is compiled);
+``count_s`` is the seconds of the counted runs.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import subprocess
+import sys
 import time
 import traceback
 from pathlib import Path
@@ -63,6 +80,10 @@ from repro_torch.roofline.counter import CostCounter
 from repro_torch.tree import leaves
 
 META = S.META
+
+#: --mesh label -> (the record's "mesh", the registry mesh; None = one card)
+MESHES = {"one": ("one-card", None), "single": ("single", "pod"),
+          "multi": ("multi", "multi-pod")}
 
 
 @dataclasses.dataclass
@@ -278,34 +299,45 @@ def cell_cost(cfg, shape: ShapeConfig, device=META):
     return const + unit * n_units, n_units
 
 
-def _roofline(cost: Cost, coll: dict) -> dict:
+def _roofline(cost: Cost, coll: dict, by_link: dict) -> dict:
     """The record's roofline fields; ``coll`` the collective bytes by kind
-    the cell issued (``RA.collective_bytes``)."""
+    the cell issued (``RA.collective_bytes``), ``by_link`` the same by the
+    link tier each crossed (``RA.link_bytes``)."""
     coll_bytes = float(sum(coll.values()))
     terms = RA.roofline_terms(cost.flops, cost.bytes, coll_bytes,
-                              flops_by_dtype=cost.flops_by_dtype)
+                              flops_by_dtype=cost.flops_by_dtype,
+                              by_link=by_link)
     tf32 = RA.roofline_terms(cost.flops, cost.bytes, coll_bytes,
-                             flops_by_dtype=cost.flops_by_dtype, tf32=True)
+                             flops_by_dtype=cost.flops_by_dtype, tf32=True,
+                             by_link=by_link)
     return dict(flops_per_chip=cost.flops, bytes_per_chip=cost.bytes,
                 flops_by_dtype=cost.flops_by_dtype,
                 collective_bytes_per_chip=coll_bytes,
                 collective_breakdown={k: v for k, v in coll.items() if v},
+                collective_by_link=by_link,
                 compute_s=terms.compute_s, compute_s_tf32=tf32.compute_s,
                 memory_s=terms.memory_s, collective_s=terms.collective_s,
                 dominant=terms.dominant, step_time_lb_s=terms.step_time_lb)
 
 
 def run_cell(arch_name: str, shape: Union[str, ShapeConfig], *,
-             cfg=None, verbose: bool = True) -> dict:
+             cfg=None, mesh_label: str = "one-card",
+             verbose: bool = True) -> dict:
     """One (arch, shape) cell on ``meta``.  ``shape`` is a name of
     ``configs.base.SHAPES`` or a ``ShapeConfig``; ``cfg`` overrides the
-    registry's config (a reduced one in the tests)."""
+    registry's config (a reduced one in the tests).  On a production mesh
+    (``mesh_label`` "single" or "multi") the cell is skipped with the
+    ROADMAP item that brings its sharded form."""
     cfg = cfg or get_arch(arch_name)
     shape = get_shape(shape) if isinstance(shape, str) else shape
-    rec = {"arch": arch_name, "shape": shape.name, "mesh": "single"}
+    rec = {"arch": arch_name, "shape": shape.name, "mesh": mesh_label}
     ok, reason = cfg.supports_shape(shape)
     if not ok:
         return {**rec, "status": "skipped", "reason": reason}
+    if mesh_label != "one-card":
+        item = S.TRAIN_MESH_ITEM if cfg.is_diffusion else S.LM_MESH_ITEM
+        return {**rec, "status": "skipped",
+                "reason": f"not priced on a mesh yet: {item}"}
     rec.update(chips=1, status="error")
     t0 = time.monotonic()
     comm.reset()
@@ -327,7 +359,7 @@ def run_cell(arch_name: str, shape: Union[str, ShapeConfig], *,
         status="ok", lower_s=None, compile_s=None,
         count_s=time.monotonic() - t0, n_units=n_units, **mem,
         fits_hbm=bool(mem["peak_bytes"] < RA.HBM_PER_CHIP),
-        **_roofline(cost, RA.collective_bytes()),
+        **_roofline(cost, RA.collective_bytes(), RA.link_bytes()),
         model_flops_global=mf,
         model_flops_ratio=mf / cost.flops if cost.flops else None)
     if verbose:
@@ -336,7 +368,7 @@ def run_cell(arch_name: str, shape: Union[str, ShapeConfig], *,
 
 
 def _print(rec: dict) -> None:
-    print(f"[single] {rec['arch']} x {rec['shape']}: counted in "
+    print(f"[{rec['mesh']}] {rec['arch']} x {rec['shape']}: counted in "
           f"{rec['count_s']:.1f}s, compute {rec['compute_s'] * 1e3:.2f}ms "
           f"(TF32 {rec['compute_s_tf32'] * 1e3:.2f}ms) / mem "
           f"{rec['memory_s'] * 1e3:.2f}ms / coll "
@@ -346,7 +378,8 @@ def _print(rec: dict) -> None:
           f"{rec['model_flops_ratio'] and round(rec['model_flops_ratio'], 3)}")
 
 
-def run_parataa_cell(*, T: int = 100, window: int = 64, n_samples: int = 16,
+def run_parataa_cell(*, mesh=None, mesh_label: str = "one-card",
+                     T: int = 100, window: int = 64, n_samples: int = 16,
                      history_m: int = 3, reduced: bool = False,
                      verbose: bool = True) -> dict:
     """The paper's workload as a cell: ParaTAA sampling of DiT-XL, 16
@@ -354,46 +387,67 @@ def run_parataa_cell(*, T: int = 100, window: int = 64, n_samples: int = 16,
     (the reference's geometry), in float32 as the port serves it (the
     reference's bf16 params meet float32 latents and compute in float32).
 
-    Memory: the solver state (the engine's lanes) and the params, through
+    Counted through the serving engine's own code path: a
+    ``SamplingEngine`` (``serve.make_engine``: ``dit_defs`` as its
+    ``param_defs``) on ``Placement.host()``, or with ``mesh`` (a
+    ``DeviceMesh``; the dry-run's are ``fake_mesh``'s) on
+    ``Placement.for_mesh(mesh)``: the requests rounded up to the data
+    shards, this rank's lanes, its blocks of the DiT (tensor-parallel over
+    ``model``, FSDP over the data axes) — rank 0's program, the same on
+    every rank up to its coordinates.  The TAA round runs on each data
+    shard's lanes, replicated over ``model``.
+
+    Memory: the solver state (the rank's lanes) and the params, through
     one guarded iteration — every iteration of the loop is that program.
-    Cost: one guarded solver iteration (the window's 16 x 64 DiT
-    forwards, the residuals, the TAA round and the per-lane selects;
-    the round on ``meta`` is its plain version): x the iteration count
-    for a request's cost.  ``reduced``: the reduced DiT at 32 tokens."""
+    Cost: one guarded solver iteration (the window's DiT forwards, the
+    residuals, the TAA round and the per-lane selects; the round on
+    ``meta`` is its plain version) and, on a mesh, the poll's flag
+    all-reduce: x the iteration count for a request's cost.  ``reduced``:
+    the reduced DiT at 32 tokens."""
     from repro_torch.core import ddim_coeffs
     from repro_torch.core import parataa
-    from repro_torch.diffusion import dit as dit_mod
-    from repro_torch.sampling import get_sampler
+    from repro_torch.launch.serve import make_engine
+    from repro_torch.sampling import Placement, get_sampler
 
     cfg = get_arch("dit-xl")
     if reduced:
         cfg = cfg.reduced()
     n_tok = 32 if reduced else 256
-    rec = {"arch": "dit-xl", "shape": "parataa_serve", "mesh": "single",
-           "chips": 1, "status": "error", "T": T, "window": window,
-           "n_samples": n_samples, "placement": "one device"}
+    placement = Placement.host() if mesh is None else \
+        Placement.for_mesh(mesh)
+    n_samples = placement.round_batch(n_samples)
+    chips = placement.num_devices
+    rec = {"arch": "dit-xl", "shape": "parataa_serve", "mesh": mesh_label,
+           "chips": chips, "status": "error", "T": T, "window": window,
+           "n_samples": n_samples,
+           "placement": "one device" if mesh is None
+           else placement.describe(denoiser_sharded=True)}
     t0 = time.monotonic()
-    comm.reset()
     coeffs = ddim_coeffs(T)
     spec = get_sampler("taa", order_k=8, history_m=history_m, window=window,
                        s_max=2 * T)
-    solver = spec.solver_config(T)
     params, _ = S.abstract_model_state(cfg, with_opt=False,
                                        dtype=torch.float32)
-    labels = torch.zeros((n_samples,), dtype=torch.long, device=META)
-    xi = torch.empty((n_samples, T + 1, n_tok, cfg.latent_dim),
+    engine = make_engine(params, cfg, coeffs, spec, num_tokens=n_tok,
+                         device=META, placement=placement)
+    lo, hi = placement.lanes(n_samples)
+    solver = engine._solver_cfg(spec.solver_config(T))
+    labels = torch.zeros((hi - lo,), dtype=torch.long, device=META)
+    xi = torch.empty((hi - lo, T + 1, n_tok, cfg.latent_dim),
                      dtype=torch.float32, device=META)
-
-    def eps_fn(xw, taus):
-        y = labels.repeat_interleave(xw.shape[0] // n_samples)
-        return dit_mod.dit_apply(params, cfg, xw, taus, y)
-
     state = parataa.init_state(coeffs, solver, xi)
     static = parataa._build_static(coeffs, solver, META)
-    eps_flat = parataa._flat_eps(eps_fn, (n_tok, cfg.latent_dim))
-    with torch.no_grad(), CostCounter() as counter:
-        arg_bytes = counter.track(params, state, labels)
+    eps_flat = parataa._flat_eps(engine._lane_eps(labels),
+                                 (n_tok, cfg.latent_dim))
+    comm.reset()
+    with torch.no_grad(), placement.activations(), \
+            CostCounter() as counter:
+        arg_bytes = counter.track(getattr(engine.params, "local",
+                                          engine.params), state, labels)
         nxt = parataa._guarded_step(state, static, solver, eps_flat)
+        if mesh is not None:        # the poll's flag, over the data shards
+            comm.all_reduce_min(nxt.finished.all().to(torch.int32),
+                                placement.data_group)
         del nxt
     cost = Cost.of(counter)
     peak = counter.peak
@@ -402,18 +456,73 @@ def run_parataa_cell(*, T: int = 100, window: int = 64, n_samples: int = 16,
         status="ok", compile_s=None, count_s=time.monotonic() - t0,
         argument_bytes=arg_bytes, temp_bytes=peak - arg_bytes,
         peak_bytes=peak, fits_hbm=bool(peak < RA.HBM_PER_CHIP),
-        **_roofline(cost, RA.collective_bytes()), model_flops_global=mf,
-        model_flops_ratio=mf / cost.flops if cost.flops else None,
+        **_roofline(cost, RA.collective_bytes(), RA.link_bytes()),
+        collective_counts={k: v for k, v in comm.counts.items() if v},
+        model_flops_global=mf,
+        model_flops_ratio=mf / (cost.flops * chips) if cost.flops else None,
         note="per-ITERATION cost; end-to-end = iters x this")
+    if mesh is not None:
+        rec["collective_model"] = (
+            f"modeled, not measured: each group's bytes at the slowest "
+            f"link its ranks cross, NVLink 4 {RA.LINK_BW / 1e9:g} GB/s "
+            f"each way inside a node of {RA.RANKS_PER_NODE} consecutive "
+            f"ranks (HGX H100), one 400 Gb/s NDR InfiniBand port a GPU "
+            f"({RA.NETWORK_BW / 1e9:g} GB/s) across nodes")
     if verbose:
         _print(rec)
     return rec
 
 
-def _error(arch, shape, e) -> dict:
+def _error(arch, shape, e, mesh_label: str = "one-card") -> dict:
     traceback.print_exc()
-    return {"arch": arch, "shape": shape, "mesh": "single", "status": "error",
-            "error": repr(e)}
+    return {"arch": arch, "shape": shape, "mesh": mesh_label,
+            "status": "error", "error": repr(e)}
+
+
+def _cells(args) -> list:
+    if args.all:
+        return [(a, s) for a in ASSIGNED for s in SHAPES] + \
+            [("dit-xl", "train_4k")]
+    if args.parataa:
+        return []
+    if not (args.arch and args.shape):
+        raise SystemExit("--arch/--shape, --parataa or --all")
+    return [(args.arch, args.shape)]
+
+
+def _run(args, mesh_key: str) -> int:
+    """Every asked-for cell on one mesh; returns the failures."""
+    label, registry_name = MESHES[mesh_key]
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    failures = 0
+
+    def write(arch, shape, rec):
+        (out / f"{arch}__{shape}__{label}.json").write_text(
+            json.dumps(rec, indent=1, default=str))
+
+    for arch_name, shape_name in _cells(args):
+        try:
+            rec = run_cell(arch_name, shape_name, mesh_label=label)
+        except Exception as e:  # noqa: BLE001 — the cell's record says why
+            rec = _error(arch_name, shape_name, e, label)
+            failures += 1
+        write(arch_name, shape_name, rec)
+    if not (args.all or args.parataa):
+        return failures
+    try:
+        if registry_name is None:
+            rec = run_parataa_cell(mesh_label=label)
+        else:
+            from repro_torch.launch.mesh import fake_mesh
+
+            with fake_mesh(registry_name) as mesh:
+                rec = run_parataa_cell(mesh=mesh, mesh_label=label)
+    except Exception as e:  # noqa: BLE001
+        rec = _error("dit-xl", "parataa_serve", e, label)
+        failures += 1
+    write("dit-xl", "parataa_serve", rec)
+    return failures
 
 
 def main(argv=None):
@@ -425,37 +534,27 @@ def main(argv=None):
                         "ParaTAA cell")
     p.add_argument("--parataa", action="store_true",
                    help="only the ParaTAA batched-sampling cell")
+    p.add_argument("--mesh", default="one",
+                   choices=["one", "single", "multi", "both"],
+                   help="one H100 (one), the pod mesh of 256 ranks "
+                        "(single), multi-pod of 512 (multi), or single "
+                        "then multi, each in its own process (both)")
     p.add_argument("--out", default="build/dryrun")
     args = p.parse_args(argv)
 
-    out = Path(args.out)
-    out.mkdir(parents=True, exist_ok=True)
-    if args.all:
-        cells = [(a, s) for a in ASSIGNED for s in SHAPES] + \
-            [("dit-xl", "train_4k")]
-    elif args.parataa:
-        cells = []
-    else:
-        if not (args.arch and args.shape):
-            raise SystemExit("--arch/--shape, --parataa or --all")
-        cells = [(args.arch, args.shape)]
-    failures = 0
-    for arch_name, shape_name in cells:
-        path = out / f"{arch_name}__{shape_name}__single.json"
-        try:
-            rec = run_cell(arch_name, shape_name)
-        except Exception as e:  # noqa: BLE001 — the cell's record says why
-            rec = _error(arch_name, shape_name, e)
-            failures += 1
-        path.write_text(json.dumps(rec, indent=1, default=str))
-    if args.all or args.parataa:
-        try:
-            rec = run_parataa_cell()
-        except Exception as e:  # noqa: BLE001
-            rec = _error("dit-xl", "parataa_serve", e)
-            failures += 1
-        (out / "dit-xl__parataa_serve__single.json").write_text(
-            json.dumps(rec, indent=1, default=str))
+    if args.mesh == "both":
+        # one default group a process: each production mesh in its own,
+        # the two side by side
+        base = list(argv if argv is not None else sys.argv[1:])
+        procs = [subprocess.Popen([sys.executable, "-m",
+                                   "repro_torch.launch.dryrun", *base,
+                                   "--mesh", key])
+                 for key in ("single", "multi")]
+        failures = sum(p.wait() != 0 for p in procs)
+        if failures:
+            raise SystemExit(f"{failures} mesh run(s) failed")
+        return
+    failures = _run(args, args.mesh)
     if failures:
         raise SystemExit(f"{failures} cell(s) failed")
 

@@ -21,9 +21,17 @@ the ``ranks=`` given, where the JAX package takes ``devices=``).  Building
 a mesh is collective over the default group: every rank calls it, in the
 same order, whether or not it is one of the mesh's ranks.  Importing this
 module touches no process group.
+
+:func:`fake_mesh` builds a registry mesh (``pod``, ``multi-pod``) in a
+world without cards: torch's ``fake`` backend, in which this process is
+rank 0 and every collective returns at once, moving nothing.  The
+dry-run counts rank 0's program on ``meta`` tensors there; nothing else
+uses it, and a process holds one default group, so it runs in a process
+of its own.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import os
@@ -262,6 +270,30 @@ def axes_group(mesh, axes: Tuple[str, ...]):
                 mine = group
         _GROUPS[key] = (mesh, mine)     # the mesh is kept alive with its id
     return _GROUPS[key][1]
+
+
+@contextlib.contextmanager
+def fake_mesh(name: str, **sizes):
+    """The registry mesh ``name`` (with ``with_sizes`` overrides) over a
+    ``fake`` world of as many ranks, this process its rank 0: shapes,
+    groups and collectives without cards or data (``meta`` tensors pass
+    through ``repro_torch.comm`` and are counted).  Refuses to start
+    beside another default group; destroys its own on exit."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    spec = get_mesh_spec(name).with_sizes(**sizes)
+    if dist.is_initialized():
+        raise RuntimeError(
+            f"fake_mesh({name!r}) needs a process without a process group "
+            f"(one has {dist.get_backend()!r}); run the dry-run in its "
+            f"own process")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=spec.num_devices)
+    try:
+        yield spec.build(device_type="cpu")
+    finally:
+        dist.destroy_process_group()
+        _GROUPS.clear()
 
 
 register_mesh(MeshSpec("debug", (2, 2), ("data", "model"),

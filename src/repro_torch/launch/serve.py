@@ -70,7 +70,7 @@ from repro_torch.configs.registry import get_arch
 from repro_torch.core import ddim_coeffs, ddpm_coeffs
 from repro_torch.device import resolve_device
 from repro_torch.diffusion.convert import dit_init
-from repro_torch.diffusion.dit import dit_apply
+from repro_torch.diffusion.dit import dit_apply, dit_defs
 from repro_torch import comm
 from repro_torch.launch.backend import apply_backend_tune, read_settings
 from repro_torch.launch.mesh import init_distributed, make_mesh, mesh_names
@@ -115,10 +115,13 @@ def make_placement(mesh_name: str = "none", *, data_parallel: int = 0,
 
 def make_engine(params, cfg, coeffs, spec, *, num_tokens=16, device=None,
                 noise_fn=None, placement: Placement = None) -> SamplingEngine:
+    """The DiT's engine; on a mesh the DiT runs tensor-parallel on each
+    rank's blocks of ``params`` (``dit_defs``), as the JAX package's
+    serving engine shards it."""
     return SamplingEngine(make_eps_apply(cfg), params, coeffs, spec,
                           sample_shape=(num_tokens, cfg.latent_dim),
                           device=device, noise_fn=noise_fn,
-                          placement=placement)
+                          placement=placement, param_defs=dit_defs(cfg))
 
 
 def serve_batch(engine: SamplingEngine, requests, *, batch_size=None):
@@ -259,7 +262,7 @@ def serve_async(args, cfg, params, device, placement: Placement = None):
         registry.warmup(key, slots=loop.batcher.slots_for(engine),
                         chunk_iters=args.chunk_iters)
         print(f"warmed {key.describe()}: {engine.device}, "
-              f"{engine.placement.describe()}")
+              f"{engine.placement.describe(engine.denoiser_sharded)}")
 
     leader = loop.control.leader
     rng = np.random.default_rng(args.seed)
@@ -426,8 +429,9 @@ def main(argv=None):
                    help="override the mesh's `data` axis size "
                         "(request-axis shards; 0 = registry default)")
     p.add_argument("--model-parallel", type=int, default=0,
-                   help="override the mesh's `model` axis size (the DiT "
-                        "runs replicated over it; 0 = registry default)")
+                   help="override the mesh's `model` axis size (the DiT's "
+                        "heads, MLP and adaLN columns split over it; 0 = "
+                        "registry default)")
     p.add_argument("--time-parallel", type=int, default=0,
                    help="override a *-time mesh's `time` axis size (solve-"
                         "window shards within one request, bit for bit "
@@ -511,7 +515,7 @@ def main(argv=None):
 
 
 def _serve(args, device, placement: Placement):
-    print(f"placement: {placement.describe()}")
+    print(f"placement: {placement.describe(denoiser_sharded=True)}")
     if apply_backend_tune(["--backend-tune"] if args.backend_tune else []):
         print(f"backend tune: {read_settings()}")
     cfg = get_arch(args.arch)

@@ -8,6 +8,10 @@ On a mesh, the reference's shardings become PartitionSpec entries
 (``input_partition``, ``cache_partition``, ``_cache_spec_for``, by its
 rules and divisibility) and ``input_specs(mesh=)`` returns the inputs as
 ``DTensor``s with those placements on the ``DeviceMesh``.
+``abstract_model_state(cfg, mesh=)`` gives the DiT's rank-local blocks
+(``pdefs.local_block``, what ``Placement.shard_params`` hands the
+tensor-parallel DiT); the LM backbones and the caches on a mesh wait for
+their tensor-parallel forms (``LM_MESH_ITEM``).
 
 A train step updates the params and optimizer state in place (the
 counterpart of the reference's donated buffers) and returns its metrics as
@@ -25,13 +29,19 @@ from repro_torch.diffusion import dit as dit_mod
 from repro_torch.diffusion.schedules import make_schedule
 from repro_torch.models import backbone
 from repro_torch.models.pdefs import (dtensor_placements, leaf_dtype,
-                                      map_defs, resolve_axis)
+                                      local_shape, map_defs, resolve_axis)
 from repro_torch.optim import AdamWConfig, adamw_update, lr_schedule
 from repro_torch.tree import flatten_with_paths, leaves, map_tree, unflatten
 
 #: the params' dtype of the dry-run's cells (the reference's PARAM_DTYPE)
 PARAM_DTYPE = torch.bfloat16
 META = torch.device("meta")
+
+#: the ROADMAP items that bring the cells still missing on a mesh
+LM_MESH_ITEM = ("ROADMAP Queue 1 item 3, step 1: tensor parallelism for "
+                "the LM backbones and their cells on the production meshes")
+TRAIN_MESH_ITEM = ("ROADMAP Queue 1 item 3, step 2: the tensor-parallel "
+                   "backward and the DiT's train_4k cell on a mesh")
 
 
 def make_loss_fn(cfg: ArchConfig):
@@ -269,22 +279,33 @@ def cache_partition(cfg: ArchConfig, shape: ShapeConfig, mesh,
 
 
 def abstract_cache(cfg: ArchConfig, shape: ShapeConfig, device=META,
-                   dtype=PARAM_DTYPE):
+                   dtype=PARAM_DTYPE, mesh=None):
     """The decode/prefill cache of the cell (``backbone.init_cache``) on
-    ``device``."""
+    ``device``.  On a mesh (rank-local blocks) it raises: the LM
+    backbones are not tensor-parallel yet (``LM_MESH_ITEM``)."""
+    if mesh is not None:
+        raise NotImplementedError(f"abstract_cache(mesh=): {LM_MESH_ITEM}")
     return backbone.init_cache(cfg, shape.global_batch, shape.seq_len,
                                dtype, device)
 
 
 def abstract_model_state(cfg: ArchConfig, with_opt: bool = True,
-                         dtype=PARAM_DTYPE, device=META):
+                         dtype=PARAM_DTYPE, device=META, mesh=None):
     """(params, optimizer state or None) as empty tensors on ``device``,
     each param leaf in its spec's dtype or ``dtype``; the AdamW state
-    float32 (master, mu, nu) and its int32 count."""
+    float32 (master, mu, nu) and its int32 count.  On a ``DeviceMesh``
+    (the DiT only) every leaf is this rank's block of it
+    (``pdefs.local_shape``: heads, mlp and the adaLN columns over
+    ``model``, embed rows over the data axes) and the optimizer state
+    matches the blocks."""
+    if mesh is not None and not cfg.is_diffusion:
+        raise NotImplementedError(
+            f"abstract_model_state(mesh=) for {cfg.name}: {LM_MESH_ITEM}")
     defs = dit_mod.dit_defs(cfg) if cfg.is_diffusion else \
         backbone.build_defs(cfg)
     params = map_defs(lambda _, spec: torch.empty(
-        spec.shape, dtype=leaf_dtype(spec, dtype), device=device), defs)
+        spec.shape if mesh is None else local_shape(spec, mesh),
+        dtype=leaf_dtype(spec, dtype), device=device), defs)
     if not with_opt:
         return params, None
 

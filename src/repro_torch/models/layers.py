@@ -54,7 +54,10 @@ def mlp_def(d: int, ff: int):
 
 
 def mlp(params, x, act: str = "silu"):
-    """Gated MLP (SwiGLU / GeGLU): (act(x W_gate) * x W_up) W_o."""
+    """Gated MLP (SwiGLU / GeGLU): (act(x W_gate) * x W_up) W_o.  Given a
+    model rank's blocks (``wi_gate``/``wi_up`` its columns, ``wo`` its
+    rows) it returns that rank's partial sum: the caller adds the partials
+    over ``model`` (``ShardedParams.model_sum``)."""
     g = act_fn(act)(x @ params["wi_gate"])
     return (g * (x @ params["wi_up"])) @ params["wo"]
 

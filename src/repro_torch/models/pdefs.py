@@ -2,9 +2,12 @@
 shapes, inits, per-leaf dtypes and logical axes (the JAX package's
 ``repro.models.pdefs``).  Its MaxText-style rules map the logical axes
 onto a rank mesh with the same divisibility fallback (``resolve_specs``,
-the reference's PartitionSpec entries as tuples), and
+the reference's PartitionSpec entries as tuples).  A rank's block of a
+leaf is its coordinate's contiguous slice of every sharded dim, as a
+``NamedSharding`` lays it out (:func:`local_shape`, :func:`local_block`:
+the tensor-parallel DiT's parameters, ``Placement.shard_params``), and
 :func:`dtensor_placements` turns a spec into the ``Shard``/``Replicate``
-placements of a ``DeviceMesh`` (``Placement.shard_params``).
+placements of a ``DeviceMesh`` (``Placement.distribute_params``).
 
 A params tree is nested dicts and lists laid out as the reference's, so
 its leaves have the reference's paths (dict keys, and list indices as
@@ -116,6 +119,50 @@ def resolve_specs(defs, mesh):
     return map_defs(lambda _, spec: resolve_spec(spec, mesh), defs)
 
 
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one PartitionSpec entry (None, a name, or a tuple
+    of names), major first."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def entry_size(entry, mesh) -> int:
+    """How many blocks an entry splits its dim into."""
+    sizes = _mesh_axis_sizes(mesh)
+    return int(np.prod([sizes[a] for a in entry_axes(entry)], dtype=np.int64))
+
+
+def entry_index(entry, mesh) -> int:
+    """This rank's block along an entry: its coordinates on the entry's
+    axes, flattened major first (the order of a ``NamedSharding``'s
+    blocks, and of the sorted ranks of the axes' process group)."""
+    sizes = _mesh_axis_sizes(mesh)
+    index = 0
+    for axis in entry_axes(entry):
+        index = index * sizes[axis] + mesh.get_local_rank(axis)
+    return index
+
+
+def local_shape(spec: ParamSpec, mesh) -> Tuple[int, ...]:
+    """The shape of a rank's block of ``spec``'s leaf on ``mesh``."""
+    return tuple(dim // entry_size(entry, mesh) for dim, entry in
+                 zip(spec.shape, resolve_spec(spec, mesh)))
+
+
+def local_block(x: torch.Tensor, entries: Tuple, mesh) -> torch.Tensor:
+    """This rank's block of ``x`` under PartitionSpec ``entries``: along
+    each sharded dim, the contiguous slice at its :func:`entry_index`.  A
+    copy when it is smaller than ``x`` (so the whole can be freed), ``x``
+    itself when every entry is replicated."""
+    out = x
+    for dim, entry in enumerate(entries):
+        if entry_axes(entry):
+            size = out.shape[dim] // entry_size(entry, mesh)
+            out = out.narrow(dim, entry_index(entry, mesh) * size, size)
+    return out.clone() if out.numel() < x.numel() else x
+
+
 def dtensor_placements(spec: Tuple, mesh) -> list:
     """PartitionSpec entries -> one ``Shard(dim)`` / ``Replicate()`` per
     mesh dim (a mesh dim no tensor dim names is replicated)."""
@@ -123,7 +170,7 @@ def dtensor_placements(spec: Tuple, mesh) -> list:
 
     out = [Replicate() for _ in mesh.mesh_dim_names]
     for dim, entry in enumerate(spec):
-        for axis in ((entry,) if isinstance(entry, str) else entry or ()):
+        for axis in entry_axes(entry):
             out[mesh.mesh_dim_names.index(axis)] = Shard(dim)
     return out
 

@@ -17,21 +17,33 @@ and a collective is an explicit call.  What carries over:
     for bit.  Both are no-ops with no mesh, a ``None`` axis, an axis the
     mesh lacks, or rows that the axis size does not divide (the JAX
     package's fallbacks);
-  * ``constrain`` keeps its signature and is a no-op: the port's models
-    compute their activations replicated over ``model`` and the engine
-    owns the request axis (under ``serving_mesh`` the JAX package's
-    constraint resolves "batch" to replicated too, and the DiT's only
-    constraint is ``constrain(x, "batch", None, None)``).
+  * ``constrain`` keeps its signature and is a no-op: a layout is what
+    each rank holds, and the engine owns the request axis (under
+    ``serving_mesh`` the JAX package's constraint resolves "batch" to
+    replicated too, and the DiT's only constraint is
+    ``constrain(x, "batch", None, None)``);
+  * the DiT's tensor parallelism, which GSPMD derives in the JAX package
+    from the parameters' shardings, is explicit here: a
+    :class:`ShardedParams` carries a rank's blocks of the parameter tree
+    (``pdefs.local_block``: heads, mlp and the adaLN columns over
+    ``model``, the embed rows over the data axes) with the process groups
+    they are blocks over.  ``dit_apply`` given one runs the Megatron
+    forward: it all-gathers a leaf's embed rows just before the block that
+    uses it (``gather``: exact), all-gathers the adaLN columns
+    (``model_cat``) and sums the row-parallel partials (``model_sum``)
+    over ``model``.  Given a plain tree it runs every head on every rank.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Optional, Tuple
+import dataclasses
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch import comm
+from repro_torch.models.pdefs import entry_axes
 
 _MESH = contextvars.ContextVar("repro_torch_mesh", default=None)
 # override for the "batch" logical axis (e.g. serving: batch over ALL axes)
@@ -168,3 +180,92 @@ def window_gather(x_local: torch.Tensor, axis: Optional[str], dim: int,
         return x_local
     mesh, _ = hit
     return comm.all_gather_cat(x_local, mesh.get_group(axis), dim)
+
+
+@dataclasses.dataclass(eq=False)
+class ShardedParams:
+    """A rank's blocks of a parameter tree on a mesh, and what a forward
+    needs to compute with them (see the module docstring).
+
+    local:      the tree of this rank's blocks (plain tensors, each the
+                contiguous slice of ``pdefs.local_block``)
+    specs:      '/'-joined leaf path -> its PartitionSpec entries
+    mesh:       the ``DeviceMesh``
+    model_axis: the tensor-parallel axis; every other sharded axis is
+                FSDP, gathered before use
+    """
+    local: object
+    specs: Dict[str, Tuple]
+    mesh: object
+    model_axis: str = "model"
+    groups: Dict[Tuple[str, ...], object] = dataclasses.field(
+        default_factory=dict)
+
+    @classmethod
+    def build(cls, params, defs, mesh, model_axis: str = "model"
+              ) -> "ShardedParams":
+        """Slice ``params`` (the full tree, the same on every rank) into
+        this rank's blocks by ``defs``' logical axes.  Multi-axis groups
+        come from ``launch.mesh.axes_group`` (made once per mesh; every
+        mesh rank builds the same carrier)."""
+        from repro_torch.launch.mesh import axes_group
+        from repro_torch.models import pdefs
+        from repro_torch.tree import leaves, path_name, unflatten
+
+        specs, blocks = {}, []
+        for x, (path, spec) in zip(leaves(params), pdefs.walk(defs)):
+            entries = pdefs.resolve_spec(spec, mesh)
+            specs[path_name(path)] = entries
+            blocks.append(pdefs.local_block(x, entries, mesh))
+        groups = {}
+        for entries in specs.values():
+            for entry in entries:
+                axes = entry_axes(entry)
+                if axes and axes not in groups:
+                    groups[axes] = axes_group(mesh, axes)
+        return cls(unflatten(params, blocks), specs, mesh, model_axis,
+                   groups)
+
+    def __getitem__(self, key):
+        return self.local[key]
+
+    def _entries(self, path: str, ndim: int) -> Tuple:
+        """The spec entries of ``path``'s last ``ndim`` dims (a stacked
+        leaf's layer slice drops its leading entry)."""
+        entries = self.specs[path]
+        return entries[len(entries) - ndim:]
+
+    def sharded(self, path: str) -> bool:
+        """Whether ``path``'s leaf is split over the model axis (False
+        where its size does not divide: the block is whole, and the
+        forward must not reduce over model)."""
+        return any(self.model_axis in entry_axes(e) for e in self.specs[path])
+
+    def gather(self, path: str, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (a block of ``path``'s leaf, or of one layer of it) with
+        every dim that is split over axes other than model all-gathered
+        back (ZeRO-3: exact data movement, in coordinate order)."""
+        for dim, entry in enumerate(self._entries(path, x.dim())):
+            axes = entry_axes(entry)
+            if axes and self.model_axis not in axes:
+                x = comm.all_gather_cat(x, self.groups[axes], dim)
+        return x
+
+    @property
+    def model_group(self):
+        return self.groups.get((self.model_axis,))
+
+    def model_cat(self, path: str, x: torch.Tensor,
+                  dim: int = -1) -> torch.Tensor:
+        """The columns of a column-parallel product by ``path``'s leaf,
+        all-gathered over model (``x`` itself where the leaf is whole)."""
+        if not self.sharded(path):
+            return x
+        return comm.all_gather_cat(x, self.model_group, dim % x.dim())
+
+    def model_sum(self, path: str, x: torch.Tensor) -> torch.Tensor:
+        """The partial sums of a row-parallel product by ``path``'s leaf,
+        added over model (``x`` itself where the leaf is whole)."""
+        if not self.sharded(path):
+            return x
+        return comm.all_reduce_sum(x, self.model_group)

@@ -14,22 +14,37 @@ reference's ``parse_collective_bytes`` reads partitioned HLO, which eager
 PyTorch does not have.  On one rank without a mesh nothing is issued and
 the term is 0.
 
+The collective term prices each group's bytes at the slowest link its
+ranks cross (:func:`link_bytes`), the H100 form of the reference's single
+ICI constant: NVLink inside a node, the network between nodes.  A node is
+8 consecutive ranks (an HGX H100 board: 8 cards on NVLink 4 through
+NVSwitch), so a mesh axis whose group spans more than one block of 8
+ranks is priced at the network's rate.  Modeled, not measured: no
+collective across cards has been timed.
+
 Hardware constants: NVIDIA H100 SXM5 data sheet, dense rates without
 sparsity, at its 700 W limit — 989 TFLOP/s bf16 on the tensor cores, 495
 TFLOP/s TF32, 67 TFLOP/s float32 outside the tensor cores; 80 GB of HBM3
 at 3.35 TB/s; NVLink 4, 900 GB/s a card to its peers, 450 GB/s each way.
+Between nodes: one 400 Gb/s NDR InfiniBand port a GPU (ConnectX-7, the
+HGX H100 reference design's one NIC per GPU), 50 GB/s each way.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional
+from typing import Dict, Iterable, Mapping, Optional
 
 PEAK_FLOPS = 989e12     # bf16 (and fp16) tensor cores, dense, per card
 TF32_FLOPS = 495e12     # TF32 tensor cores, dense
 F32_FLOPS = 67e12       # float32 outside the tensor cores
 HBM_BW = 3.35e12        # bytes/s, HBM3
 LINK_BW = 450e9         # bytes/s, NVLink 4, each way
+NETWORK_BW = 50e9       # bytes/s, one 400 Gb/s NDR InfiniBand port a GPU
+RANKS_PER_NODE = 8      # cards on one NVLink domain (an HGX H100 node)
 HBM_PER_CHIP = 80e9     # bytes of HBM3
+
+#: bytes/s each way of a link tier
+LINK_TIERS = {"nvlink": LINK_BW, "network": NETWORK_BW}
 
 
 #: the collective kinds of the reference's HLO parser, in its order
@@ -48,6 +63,28 @@ def collective_bytes(counted: Optional[Mapping[str, int]] = None
 
         counted = comm.nbytes
     return {k: int(counted.get(k, 0)) for k in COLLECTIVES}
+
+
+def link_of(ranks: Iterable[int]) -> str:
+    """The slowest link a group of global ranks crosses: ``nvlink`` when
+    they sit in one node of :data:`RANKS_PER_NODE` consecutive ranks,
+    else ``network``."""
+    return "nvlink" if len({int(r) // RANKS_PER_NODE for r in ranks}) <= 1 \
+        else "network"
+
+
+def link_bytes(group_bytes: Optional[Mapping] = None) -> Dict[str, int]:
+    """Collective bytes by the link tier they cross: ``group_bytes``
+    (default ``repro_torch.comm.group_bytes``: (kind, group's ranks) ->
+    bytes) summed by :func:`link_of` of each group."""
+    if group_bytes is None:
+        from repro_torch import comm
+
+        group_bytes = comm.group_bytes
+    out = dict.fromkeys(LINK_TIERS, 0)
+    for (_, ranks), n in group_bytes.items():
+        out[link_of(ranks)] += int(n)
+    return out
 
 
 def peak_for(dtype: str, tf32: bool = False) -> float:
@@ -89,10 +126,14 @@ class RooflineTerms:
 def roofline_terms(flops_per_chip: float, bytes_per_chip: float,
                    coll_bytes_per_chip: float, *,
                    flops_by_dtype: Optional[Dict[str, float]] = None,
-                   tf32: bool = False) -> RooflineTerms:
+                   tf32: bool = False,
+                   by_link: Optional[Mapping[str, float]] = None
+                   ) -> RooflineTerms:
     """The three terms.  With ``flops_by_dtype`` (the counter's split) each
     dtype's FLOPs take their own peak (:func:`peak_for`); without it all
-    FLOPs take the bf16 peak, as the reference's do."""
+    FLOPs take the bf16 peak, as the reference's do.  With ``by_link``
+    (:func:`link_bytes`) each tier's bytes take its own rate; without it
+    every collective byte takes NVLink's."""
     if flops_by_dtype:
         compute_s = sum(f / peak_for(d, tf32)
                         for d, f in flops_by_dtype.items())
@@ -101,7 +142,9 @@ def roofline_terms(flops_per_chip: float, bytes_per_chip: float,
     return RooflineTerms(
         compute_s=compute_s,
         memory_s=bytes_per_chip / HBM_BW,
-        collective_s=coll_bytes_per_chip / LINK_BW,
+        collective_s=(sum(n / LINK_TIERS[tier] for tier, n in
+                          by_link.items()) if by_link is not None
+                      else coll_bytes_per_chip / LINK_BW),
         flops_per_chip=flops_per_chip,
         bytes_per_chip=bytes_per_chip,
         coll_bytes_per_chip=coll_bytes_per_chip,

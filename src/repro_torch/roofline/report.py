@@ -1,12 +1,16 @@
-"""Render the one-card dry-run's JSON records as a roofline table (the JAX
-package's ``repro.roofline.report``, headed "one H100").
+"""Render the dry-run's JSON records of one mesh as a roofline table (the
+JAX package's ``repro.roofline.report``): ``one-card`` (one H100, the
+default), or the production meshes ``single`` (pod, 256 ranks) and
+``multi`` (multi-pod, 512), whose numbers are rank 0's.
 
     PYTHONPATH=src python -m repro_torch.roofline.report build/dryrun
+    PYTHONPATH=src python -m repro_torch.roofline.report build/dryrun --mesh single
 
 Every number in the table is modeled from H100 constants
 (``roofline.analysis``) and counted ops (``roofline.counter``): none is
 measured on the card.  Bytes are the eager program's, op by op, not a
-compiler's after fusion.
+compiler's after fusion; collective bytes are priced by the link each
+group crosses (NVLink inside a node of 8 ranks, the network between).
 """
 from __future__ import annotations
 
@@ -22,7 +26,13 @@ SHAPE_ORDER = ["train_4k", "prefill_32k", "decode_32k", "long_500k",
                "parataa_serve"]
 
 
-def load(results_dir: Path, mesh: str = "single"):
+#: the table's heading of each mesh label
+HEADINGS = {"one-card": "one H100",
+            "single": "pod mesh, 16 x 16 = 256 H100s, rank 0",
+            "multi": "multi-pod mesh, 2 x 16 x 16 = 512 H100s, rank 0"}
+
+
+def load(results_dir: Path, mesh: str = "one-card"):
     recs = {}
     for p in results_dir.glob(f"*__{mesh}.json"):
         r = json.loads(p.read_text())
@@ -34,11 +44,14 @@ def fmt_ms(x):
     return f"{x * 1e3:.2f}" if x is not None else "-"
 
 
-def render(results_dir: str, mesh: str = "single") -> str:
+def render(results_dir: str, mesh: str = "one-card") -> str:
     recs = load(Path(results_dir), mesh)
     lines = [
-        "### Roofline table — one H100 (modeled, not measured: H100 SXM "
-        "constants; eager op-by-op bytes)",
+        f"### Roofline table — {HEADINGS[mesh]} (modeled, not measured: "
+        f"H100 SXM constants; eager op-by-op bytes"
+        + ("" if mesh == "one-card" else
+           "; collectives at 450 GB/s NVLink inside 8-rank nodes, 50 GB/s "
+           "across") + ")",
         "",
         "| arch | shape | compute (ms) | compute TF32 (ms) | memory (ms) | "
         "collective (ms) | dominant | fits HBM | peak GB | MODEL/counted "
@@ -72,8 +85,9 @@ def render(results_dir: str, mesh: str = "single") -> str:
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("results_dir")
+    p.add_argument("--mesh", default="one-card", choices=sorted(HEADINGS))
     args = p.parse_args(argv)
-    print(render(args.results_dir))
+    print(render(args.results_dir, args.mesh))
 
 
 if __name__ == "__main__":

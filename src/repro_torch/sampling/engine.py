@@ -49,7 +49,12 @@ per-iteration poll reduces its finished flag over the data group, so all
 shards iterate in step.  With a ``time`` axis the solve window shards over
 it (``ParaTAAConfig.time_axis``).  Per-lane math does not depend on the
 partition, so a sharded engine's results equal the host placement's bit
-for bit.
+for bit.  Given ``param_defs`` (the denoiser's ``ParamSpec`` tree, as
+``serve.make_engine`` passes ``dit_defs``), each rank keeps only its
+blocks of the parameters (``Placement.shard_params``) and the DiT runs
+tensor-parallel over ``model`` inside each (data, time) shard: bit for bit
+at one model rank, and within float32 rounding of the host placement
+above it (its partial sums add in another order).
 """
 from __future__ import annotations
 
@@ -192,10 +197,11 @@ class SamplingEngine:
     device:       where the solve runs; None = cuda (raises without CUDA)
     placement:    :class:`~repro_torch.sampling.Placement` (rank mesh and
                   lane/window layout); default the host placement
-    param_defs:   a ``ParamSpec`` tree for sharded parameter layouts; the
-                  port's denoisers take plain tensors, so a mesh placement
-                  given one raises (``Placement.shard_params`` makes the
-                  DTensors)
+    param_defs:   the denoiser's ``ParamSpec`` tree: on a mesh placement
+                  each rank keeps its blocks of ``params`` by their
+                  logical axes and the denoiser runs tensor-parallel
+                  (``Placement.shard_params``); None = the whole tree on
+                  every rank
     noise_fn:     request -> (T+1, *sample_shape) noise; default draws from
                   a torch.Generator seeded with ``request.seed``
     clock:        monotonic timestamp source for ``wall_s``/``pack_s`` and
@@ -227,14 +233,11 @@ class SamplingEngine:
         self.device = resolve_device(device)
         self.placement = placement or Placement.host()
         if self.placement.is_sharded and params is not None:
-            if param_defs is not None:
-                raise NotImplementedError(
-                    "param_defs: the port's denoisers take plain tensors "
-                    "and run replicated over the mesh; Placement."
-                    "shard_params(params, defs) gives DTensors for code "
-                    "that runs on them")
-            params = self.placement.shard_params(params)
+            params = self.placement.shard_params(params, param_defs)
         self.params = params
+        #: whether the denoiser runs on this rank's blocks over ``model``
+        self.denoiser_sharded = self.placement.is_sharded \
+            and param_defs is not None
         self.noise_fn = noise_fn or self.draw_request_noise
         self._clock = clock
         self.obs = obs if obs is not None else Observability.off()
@@ -288,7 +291,8 @@ class SamplingEngine:
             axis_utilization=plc.axis_utilization(n_real, slots,
                                                   self.window),
             devices=plc.num_devices, data_shards=plc.data_shards,
-            model_shards=plc.model_shards, time_shards=plc.time_shards)
+            model_shards=plc.model_shards, time_shards=plc.time_shards,
+            denoiser_sharded=self.denoiser_sharded)
 
     def update_launches_per_iter(self) -> int:
         """Modeled launches per solver iteration of the Anderson UPDATE

@@ -16,11 +16,13 @@ holds:
     the window's rows (``ParaTAAConfig.time_axis``; :meth:`window_spec` /
     :meth:`window_rows` give the row plan) and one all-gather restores the
     window;
-  * denoiser -> ``model_axis``: the port's denoisers take plain tensors
-    and compute replicated over it, :meth:`shard_params` broadcasting the
-    parameters from the mesh's first rank; given a ``ParamSpec`` tree it
-    places them as ``DTensor``s by their logical axes instead (for code
-    that runs on DTensors; the engine refuses them).
+  * denoiser -> ``model_axis``: given a ``ParamSpec`` tree,
+    :meth:`shard_params` gives each rank its blocks of the parameters by
+    their logical axes (``models.shardctx.ShardedParams``: heads, mlp and
+    the adaLN columns over ``model``, embed rows over the data axes), and
+    the DiT runs tensor-parallel on them; without one it broadcasts the
+    whole tree and the denoiser runs replicated over ``model``.
+    :meth:`distribute_params` places the same tree as ``DTensor``s.
 
 ``Placement.host()`` is the no-mesh placement: every method is an
 identity, and an engine built with it is the single-device engine.  A
@@ -51,8 +53,8 @@ class Placement:
                 the single-device/host placement.
     data_axis:  mesh axis (or tuple of axes) the request dimension shards
                 over.
-    model_axis: mesh axis the denoiser would shard over (its ranks compute
-                replicated rows; see the module docstring).
+    model_axis: mesh axis the denoiser shards over when the engine is given
+                its ``ParamSpec`` tree (see the module docstring).
     time_axis:  mesh axis the solve WINDOW of one request shards over
                 (None = window replicated within a data shard).
     donate:     accepted for the JAX package's flag; eager PyTorch has no
@@ -96,6 +98,11 @@ class Placement:
         object.__setattr__(self, "_mesh_group",
                            axes_group(self.mesh, tuple(
                                self.mesh.mesh_dim_names)))
+        # the FSDP group of sharded parameters (pdefs' "embed" over
+        # (pod, data)), likewise made on every rank
+        fsdp = tuple(a for a in ("pod", "data") if a in names)
+        if len(fsdp) > 1:
+            axes_group(self.mesh, fsdp)
 
     # -- constructors --------------------------------------------------------
 
@@ -297,30 +304,15 @@ class Placement:
 
     def shard_params(self, params, param_defs=None):
         """Place denoiser params on the mesh (identity off-mesh and on a
-        rank outside it).  No defs: replicated, every tensor broadcast
-        from the mesh's first rank.  A ``ParamSpec`` tree: each leaf a
-        ``DTensor`` placed by its logical axes (``pdefs.resolve_spec`` ->
-        ``dtensor_placements``: TP over ``model``, FSDP over the data
-        axes, the reference's rules), distributed from the mesh's first
-        rank's values."""
+        rank outside it).  Every tensor is first broadcast from the mesh's
+        first rank.  No defs: that replicated tree.  A ``ParamSpec`` tree:
+        this rank's blocks of it, by its logical axes
+        (``pdefs.resolve_spec`` -> ``pdefs.local_block``: TP over
+        ``model``, FSDP over the data axes, the reference's rules), as a
+        :class:`~repro_torch.models.shardctx.ShardedParams` the DiT runs
+        tensor-parallel on."""
         if not self.is_sharded or not self.is_member:
             return params
-        if param_defs is not None:
-            from torch.distributed.tensor import distribute_tensor
-
-            from repro_torch.models import pdefs
-            from repro_torch.tree import leaves, unflatten
-
-            def place(x, spec):
-                return distribute_tensor(x, self.mesh,
-                                         pdefs.dtensor_placements(
-                                             pdefs.resolve_spec(spec,
-                                                                self.mesh),
-                                             self.mesh))
-
-            return unflatten(params, [
-                place(x, spec) for x, (_, spec) in
-                zip(leaves(params), pdefs.walk(param_defs))])
         src = self.ranks[0]
 
         def bcast(x):
@@ -335,7 +327,33 @@ class Placement:
 
         with torch.no_grad():
             bcast(params)
-        return params
+        if param_defs is None:
+            return params
+        from repro_torch.models.shardctx import ShardedParams
+
+        return ShardedParams.build(params, param_defs, self.mesh,
+                                   self.model_axis)
+
+    def distribute_params(self, params, param_defs):
+        """The same tree as ``DTensor``s placed by its logical axes
+        (``pdefs.dtensor_placements``), distributed from the mesh's first
+        rank's values: each one's ``to_local()`` is the block
+        :meth:`shard_params` gives (identity off-mesh and on a rank
+        outside it)."""
+        if not self.is_sharded or not self.is_member:
+            return params
+        from torch.distributed.tensor import distribute_tensor
+
+        from repro_torch.models import pdefs
+        from repro_torch.tree import leaves, unflatten
+
+        def place(x, spec):
+            return distribute_tensor(x, self.mesh, pdefs.dtensor_placements(
+                pdefs.resolve_spec(spec, self.mesh), self.mesh))
+
+        return unflatten(params, [
+            place(x, spec) for x, (_, spec) in
+            zip(leaves(params), pdefs.walk(param_defs))])
 
     # -- activation context ---------------------------------------------------
 
@@ -354,14 +372,19 @@ class Placement:
 
     # -- reporting -----------------------------------------------------------
 
-    def describe(self) -> str:
+    def describe(self, denoiser_sharded: Optional[bool] = None) -> str:
+        """The layout in words (the JAX package's text).  With
+        ``denoiser_sharded`` it also says whether the denoiser is split
+        over the model axis (an engine given ``param_defs``) or runs
+        replicated over it."""
         if not self.is_sharded:
             return "host (no mesh, 1 program replica)"
         sizes = self._axis_sizes()
         axes = " x ".join(f"{a}={int(n)}" for a, n in sizes.items())
         window = "" if self.time_axis is None else \
             f", windows over {self.time_axis}"
+        how = {None: "", True: "TP-sharded ", False: "replicated "}[
+            denoiser_sharded]
         return (f"mesh[{axes}] ({self.num_devices} devices; requests over "
-                f"{'/'.join(self.data_axes)}, denoiser over "
+                f"{'/'.join(self.data_axes)}, denoiser {how}over "
                 f"{self.model_axis}{window})")
-

@@ -296,7 +296,11 @@ class ResilientServingLoop(ServingLoop):
         """Fetch every live bank to the host, build the survivors' mesh
         and fresh engines on it, adopt the exact state bytes, resume.
         Every lane's ticket stays open through the rebuild; a bank that
-        cannot be migrated resubmits its tickets instead."""
+        cannot be migrated resubmits its tickets instead.  An engine
+        factory that shards its denoiser (``param_defs``, as
+        ``serve.make_engine`` does) re-slices the full parameter tree each
+        rank keeps (the factory's) onto the survivors' mesh: nothing is
+        gathered from the lost ranks."""
         if not survivors:
             return self._abort(DeviceLossError(
                 f"no surviving devices ({cause})"))

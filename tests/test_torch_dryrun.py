@@ -152,7 +152,7 @@ def test_reduced_cell_runs_and_stands_against_xla(name, fields, unrolled,
                 name, shape, cfg=whole, verbose=False)["peak_bytes"]
     assert rec["status"] == "ok" and REFERENCE_KEYS <= set(rec)
     assert (rec["chips"], rec["mesh"], rec["collective_s"]) == \
-        (1, "single", 0.0)
+        (1, "one-card", 0.0)
     assert rec["peak_bytes"] == rec["argument_bytes"] + rec["temp_bytes"]
     assert rec["argument_bytes"] > 0 and rec["fits_hbm"]
     fn, args = D._program(ct, shape)
@@ -161,7 +161,7 @@ def test_reduced_cell_runs_and_stands_against_xla(name, fields, unrolled,
         whole = D._counted(fn, *args)
     assert rec["flops_per_chip"] == whole.flops
     assert abs(rec["bytes_per_chip"] / whole.bytes - 1) < 2e-2
-    path = tmp_path / f"{name}__{shape.name}__single.json"
+    path = tmp_path / f"{name}__{shape.name}__one-card.json"
     path.write_text(json.dumps(rec, default=str))
     assert json.loads(path.read_text())["dominant"] == rec["dominant"]
 
@@ -236,7 +236,7 @@ def test_main_writes_the_parataa_record(tmp_path, monkeypatch):
     monkeypatch.setattr(D, "run_parataa_cell",
                         lambda **kw: real(reduced=True, verbose=False))
     D.main(["--parataa", "--out", str(tmp_path)])
-    rec = json.loads((tmp_path / "dit-xl__parataa_serve__single.json")
+    rec = json.loads((tmp_path / "dit-xl__parataa_serve__one-card.json")
                      .read_text())
     assert rec["status"] == "ok" and np.isfinite(rec["compute_s"])
     table = report.render(str(tmp_path))

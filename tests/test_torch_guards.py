@@ -102,11 +102,18 @@ def test_distributed_never_falls_back_to_gloo_or_the_host_path(
         eng.run_batch([SampleRequest(label=0, seed=1)])
         assert comm.counts["all-gather"] > 0
         assert comm.counts["all-reduce"] > 0
-        with pytest.raises(NotImplementedError, match="param_defs"):
-            SamplingEngine(lambda *a: None, {"w": torch.ones(1)},
-                           ddim_coeffs(4), get_sampler("taa"),
-                           sample_shape=(2,), device="cpu", placement=plc,
-                           param_defs={"w": None})
+        # param_defs on a mesh: each rank keeps its blocks (the
+        # tensor-parallel path), never the host's whole tree
+        from repro_torch.models.pdefs import ParamSpec
+        from repro_torch.models.shardctx import ShardedParams
+
+        eng = SamplingEngine(lambda *a: None, {"w": torch.ones(2)},
+                             ddim_coeffs(4), get_sampler("taa"),
+                             sample_shape=(2,), device="cpu", placement=plc,
+                             param_defs={"w": ParamSpec((2,), "ones",
+                                                        axes=("mlp",))})
+        assert isinstance(eng.params, ShardedParams)
+        assert eng.denoiser_sharded and eng.params.sharded("w")
     finally:
         dist.destroy_process_group()
 

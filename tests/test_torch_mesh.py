@@ -141,9 +141,10 @@ def test_world_of_one_meshes_and_sharded_engine(gloo_world_of_one):
 
 
 def test_world_of_one_param_and_input_placements(gloo_world_of_one):
-    """``Placement.shard_params(params, defs)`` places each leaf as a
-    DTensor by its logical axes; ``input_specs(mesh=)`` the inputs by
-    ``input_partition`` (one rank: every block is the whole tensor)."""
+    """``Placement.distribute_params(params, defs)`` places each leaf as
+    a DTensor by its logical axes (its local block is ``shard_params``'
+    block); ``input_specs(mesh=)`` the inputs by ``input_partition`` (one
+    rank: every block is the whole tensor)."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.configs.registry import get_arch
@@ -156,9 +157,13 @@ def test_world_of_one_param_and_input_placements(gloo_world_of_one):
     params = pdefs.init_on_device(defs, 0, "cpu")
     mesh = tmesh.make_mesh("debug", data_parallel=1, model_parallel=1,
                            device_type="cpu")
-    placed = Placement.for_mesh(mesh).shard_params(params, defs)
-    for (path, spec), leaf in zip(pdefs.walk(defs), _leaves(placed)):
+    plc = Placement.for_mesh(mesh)
+    placed = plc.distribute_params(params, defs)
+    blocks = _leaves(plc.shard_params(params, defs).local)
+    for (path, spec), leaf, block in zip(pdefs.walk(defs), _leaves(placed),
+                                         blocks):
         assert isinstance(leaf, DTensor), path
+        assert torch.equal(leaf.to_local(), block), path
         assert list(leaf.placements) == pdefs.dtensor_placements(
             pdefs.resolve_spec(spec, mesh), mesh), path
     for a, b in zip(_leaves(params), _leaves(placed)):

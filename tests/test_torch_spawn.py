@@ -33,16 +33,18 @@ COLLECTIVE_TIMEOUT_S = 60.0
 
 
 def spawn(case: str, world: int, workdir: Path, *,
-          timeout: float = 240.0) -> list:
+          timeout: float = 240.0, module: str = "tests.test_torch_spawn"
+          ) -> list:
     """Run ``case`` on ``world`` gloo ranks; returns each rank's result.
     Kills the whole group and fails if any rank fails or the group
-    outlives ``timeout`` seconds."""
+    outlives ``timeout`` seconds.  ``module`` is the test module whose
+    ``CASES`` hold ``case`` (its ``__main__`` calls :func:`_main`)."""
     workdir = Path(workdir)
     workdir.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=f"{REPO / 'src'}:{REPO}",
                OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
-        [sys.executable, "-m", "tests.test_torch_spawn", case, str(r),
+        [sys.executable, "-m", module, case, str(r),
          str(world), str(workdir)], cwd=REPO, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
@@ -366,10 +368,10 @@ CASES = {"comm": _case_comm, "placement": _case_placement,
          "chaos": _case_chaos, "moe": _case_moe}
 
 
-def _main(argv):
+def _main(argv, cases=None):
     case, rank, world, workdir = argv[0], int(argv[1]), int(argv[2]), \
         Path(argv[3])
-    result = CASES[case](rank, world, workdir)
+    result = (cases or CASES)[case](rank, world, workdir)
     (workdir / f"rank{rank}.json").write_text(json.dumps(result))
     import torch.distributed as dist
 
