@@ -182,7 +182,8 @@ is not 0):
    over NCCL on a (1, 1) ``debug`` mesh, phase 10 (a)'s geometry and TF32,
    fused and staged: bit for bit the host placement, equal iters, nfe,
    polls and K1-K3 launches, the NCCL collectives by the formula (2L
-   all-reduces and 9L + 7 all-gathers a DiT call, + a poll all-reduce an
+   all-reduces and L + 1 all-gathers a DiT call over model; the data
+   axis has one rank, so no FSDP all-gather; + a poll all-reduce an
    iteration and 5 output all-gathers a dispatch); one DiT call's ms host
    / TP and each collective's ms at the solve's shapes (CUDA events).
    (b) ``python -m repro_torch.launch.dryrun --parataa --mesh both`` in a
@@ -190,7 +191,7 @@ is not 0):
    meshes in a fake world, modeled (per-chip FLOPs, bytes, peak and
    ``fits_hbm``, collective bytes by kind and by link).  (c) two
    processes on the one card in a gloo group (gloo takes CUDA tensors),
-   ``debug`` with model 2: DiT-XL's width (4 of its layers), its 16
+   ``debug`` with model 2: DiT-XL at full width and depth, its 16
    heads split 8 a rank, against the host placement in float32 at 16
    tokens: eps within 1e-5, trajectories within 1e-4, iters and nfe
    equal (fused).
@@ -2568,17 +2569,17 @@ def moe_expert_parallel():
 
 # --- phase 11: the tensor-parallel DiT and the production dry-run ----------
 
-#: (c): two gloo ranks on the one card, serve.main's 16-token geometry,
-#: DiT-XL's width at 4 of its 28 layers (every collective goes through
-#: host memory: the full depth takes ~25 s a run)
-TP_GLOO_TOKENS, TP_GLOO_LAYERS = 16, 4
+#: (c): two gloo ranks on the one card, serve.main's 16-token geometry
+TP_GLOO_TOKENS = 16
 
 
-def dit_counts(L: int) -> dict:
+def dit_counts(L: int, data: int) -> dict:
     """Collectives of one tensor-parallel DiT call (``diffusion/dit.py``)
     whose every leaf divides its mesh: 2L all-reduces over model; L + 1
-    all-gathers over model and 8L + 6 over the data axes."""
-    return {"all-reduce": 2 * L, "all-gather": (L + 1) + (8 * L + 6)}
+    all-gathers over model and, over data axes of more than one rank,
+    L + 1 flat all-gathers of the embed rows."""
+    return {"all-reduce": 2 * L,
+            "all-gather": (L + 1) + (L + 1 if data > 1 else 0)}
 
 
 def tp_engine_runs(cfg, params, placement, requests, *, num_tokens, defs,
@@ -2641,7 +2642,7 @@ def tensor_parallel_path(phase10=None):
     repro_torch.launch.dryrun --parataa --mesh both`` in a subprocess:
     the ParaTAA cell on the pod (256) and multi-pod (512) meshes in a
     fake world, modeled.  (c) two gloo ranks on the one card (``debug``,
-    model 2: the heads split two ways; 4 layers) against the host
+    model 2: the heads split two ways) against the host
     placement in float32 at 16 tokens, fused: eps within 1e-5,
     trajectories within 1e-4, iters and nfe equal."""
     import shutil
@@ -2681,7 +2682,7 @@ def tensor_parallel_path(phase10=None):
     try:
         runs = tp_engine_runs(cfg, params, plc, requests,
                               num_tokens=NUM_TOKENS, defs=defs)
-        per_call = dit_counts(L)
+        per_call = dit_counts(L, 1)
         for mode, r in runs.items():
             host, tp = r["host"], r["tp"]
             iters = tp["iters"]
@@ -2730,22 +2731,19 @@ def tensor_parallel_path(phase10=None):
                                   generator=gen, device=cuda)
             mod = torch.randn(rows, 6 * cfg.d_model, generator=gen,
                               device=cuda)
-            wq = sharded["blocks"]["wq"][0]
             reduce_ms = cuda_ms(lambda: sharded.model_sum("blocks/wo",
                                                           partial))
             ada_ms = cuda_ms(lambda: sharded.model_cat("blocks/ada", mod))
-            fsdp_ms = cuda_ms(lambda: sharded.gather("blocks/wq", wq))
         print(f"phase 11 (a) DiT-XL call at {rows} x {NUM_TOKENS} tokens, "
               f"TF32: host tree {host_ms} ms, TP blocks on the (1, 1) mesh "
               f"{tp_ms} ms (CUDA events, median); its NCCL all-reduce of a "
               f"{partial.numel() * 4} B partial {reduce_ms} ms (x {2 * L} a "
-              f"call), the adaLN all-gather {ada_ms} ms (x {L + 1}), one "
-              f"FSDP all-gather of a layer's wq ({wq.numel() * 4} B) "
-              f"{fsdp_ms} ms (x {8 * L + 6} leaves); phase 10 (a): window "
+              f"call), the adaLN all-gather {ada_ms} ms (x {L + 1}), no "
+              f"FSDP all-gather (one data rank); phase 10 (a): window "
               f"all-gather {phase10 and phase10.get('gather_ms')} ms, poll "
               f"all-reduce {phase10 and phase10.get('reduce_ms')} ms")
         out.update(dit_ms=dict(host=host_ms, tp=tp_ms), reduce_ms=reduce_ms,
-                   ada_gather_ms=ada_ms, fsdp_gather_ms=fsdp_ms)
+                   ada_gather_ms=ada_ms)
         del sharded, partial, mod, x
     finally:
         write_settings(before)
@@ -2809,7 +2807,7 @@ def tp_on_gloo():
     """Phase 11 (c): two processes on the one card, a gloo group
     (``init_distributed("cpu")``: gloo takes the CUDA tensors of every
     collective the TP DiT issues), ``debug`` with data 1 x model 2, each
-    rank computing its 8 heads' columns of DiT-XL (full width, 4 layers):
+    rank computing its 8 heads' columns of DiT-XL (full width and depth):
     eps and ``run_batch`` against the host placement in each rank,
     float32 (TF32 off)."""
     import os
@@ -2855,8 +2853,6 @@ def tp_on_gloo():
 
 def tp_gloo_rank(rank: int, work: Path) -> None:
     """One rank of phase 11 (c) (``chip_smoke.py --tp-gloo-rank R DIR``)."""
-    import dataclasses
-
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2875,7 +2871,7 @@ def tp_gloo_rank(rank: int, work: Path) -> None:
     # gloo groups; the tensors live on the card
     plc = Placement.for_mesh(make_mesh("debug", data_parallel=1,
                                        model_parallel=2, device_type="cpu"))
-    cfg = dataclasses.replace(get_arch("dit-xl"), num_layers=TP_GLOO_LAYERS)
+    cfg = get_arch("dit-xl")
     params = init_on_device(dit.dit_defs(cfg), SEED, cuda)
     gen = torch.Generator(device=cuda).manual_seed(SEED + 1)
     for name in ADA_ZERO:

@@ -85,6 +85,14 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
+def all_reduce_sum_(x: torch.Tensor, group) -> torch.Tensor:
+    """:func:`all_reduce_sum` in place: ``x`` (which no one else reads)
+    overwritten with the sum, without the copy."""
+    _count("all-reduce", x, group)
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
+
+
 def broadcast_(x: torch.Tensor, src: int, group=None) -> torch.Tensor:
     """``x`` overwritten in place with global rank ``src``'s."""
     _count("broadcast", x, group)

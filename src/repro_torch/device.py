@@ -53,6 +53,13 @@ def to_device(a, dtype: torch.dtype, device: DeviceLike) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied to host memory: pinned when it lives on a card, so a
+    later copy back to the card runs at the link's rate."""
+    return torch.empty(t.shape, dtype=t.dtype,
+                       pin_memory=t.is_cuda).copy_(t)
+
+
 def constant(key: Hashable, make: Callable[[], object]):
     """``make()``'s result, made once per ``key`` and kept (the last
     :data:`MAX_CONSTANTS` keys).  The key names everything the result

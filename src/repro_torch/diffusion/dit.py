@@ -18,12 +18,14 @@ forward the JAX package's GSPMD derives from ``LOGICAL_RULES``: the adaLN
 products give this rank's contiguous columns of the modulation, rebuilt by
 one all-gather over ``model``; ``wq``/``wk``/``wv`` are column-parallel
 over the rank's heads and ``wo`` row-parallel, its partial sums added by
-one all-reduce over ``model`` (the MLP likewise); every leaf's ``embed``
-rows are all-gathered over the data axes just before the block that uses
-them.  A call issues 2L all-reduces and L + 1 all-gathers over ``model``
-and 8L + 6 all-gathers over the data axes (every leaf that its mesh
-divides).  At ``model`` = 1 the products are the host path's on the same
-tensors, bit for bit.  The sharded forward is inference only.
+one all-reduce over ``model`` (the MLP likewise); the ``embed`` rows of a
+block's leaves are all-gathered over the data axes just before the block,
+in one flat all-gather, and those of the top-level leaves in one at the
+start of the call.  A call issues 2L all-reduces and L + 1 all-gathers
+over ``model``, and L + 1 all-gathers over the data axes when they have
+more than one rank (none at one).  At ``model`` = 1 the products are the
+host path's on the same tensors, bit for bit.  The sharded forward is
+inference only.
 """
 from __future__ import annotations
 
@@ -129,8 +131,8 @@ def dit_apply(params, cfg: ArchConfig, latents, t, y=None, *,
                 "ROADMAP Queue 1 item 3, step 2 (the tensor-parallel "
                 "backward and the DiT's train_4k cell on a mesh)")
 
-    def full(path, x):
-        return tp.gather(path, x) if tp is not None else x
+    def full(blocks):
+        return tp.gather(blocks) if tp is not None else blocks
 
     def cat(path, x):
         return tp.model_cat(path, x) if tp is not None else x
@@ -140,16 +142,17 @@ def dit_apply(params, cfg: ArchConfig, latents, t, y=None, *,
 
     b, n, _ = latents.shape
     d = cfg.d_model
-    x = latents @ full("in_proj", tree["in_proj"])
+    top = full({k: tree[k] for k in ("in_proj", "t_mlp1", "t_mlp2",
+                                     "y_embed", "final_ada", "out_proj")})
+    x = latents @ top["in_proj"]
     x = x + _positions(n, d, x.dtype, x.device)[None]
 
     temb = sinusoidal_embed(t, TEMB_DIM).to(x.dtype)
-    cond = F.silu(temb @ full("t_mlp1", tree["t_mlp1"])) \
-        @ full("t_mlp2", tree["t_mlp2"])
+    cond = F.silu(temb @ top["t_mlp1"]) @ top["t_mlp2"]
     if y is None:
         y = torch.full((b,), cfg.num_classes, dtype=torch.long,
                        device=x.device)                       # null class
-    cond = F.silu(cond + full("y_embed", tree["y_embed"])[y])
+    cond = F.silu(cond + top["y_embed"][y])
 
     def block(p, p_mlp, x):
         mod = cat("blocks/ada", cond @ p["ada"])
@@ -167,16 +170,17 @@ def dit_apply(params, cfg: ArchConfig, latents, t, y=None, *,
               if k != "mlp"}
     layers_mlp = {k: v.unbind(0) for k, v in tree["blocks"]["mlp"].items()}
     for i in range(cfg.num_layers):
-        # a sharded leaf's embed rows gathered just before its block
-        p = {k: full(f"blocks/{k}", v[i]) for k, v in layers.items()}
-        p_mlp = {k: full(f"blocks/mlp/{k}", v[i])
-                 for k, v in layers_mlp.items()}
+        # a sharded block's embed rows gathered just before it
+        whole = full({**{f"blocks/{k}": v[i] for k, v in layers.items()},
+                      **{f"blocks/mlp/{k}": v[i]
+                         for k, v in layers_mlp.items()}})
+        p = {k: whole[f"blocks/{k}"] for k in layers}
+        p_mlp = {k: whole[f"blocks/mlp/{k}"] for k in layers_mlp}
         x = (checkpoint(block, p, p_mlp, x, use_reentrant=False) if remat
              else block(p, p_mlp, x))
-    sh, sc = cat("final_ada", cond @ full("final_ada", tree["final_ada"])
-                 ).chunk(2, dim=-1)
+    sh, sc = cat("final_ada", cond @ top["final_ada"]).chunk(2, dim=-1)
     x = _modulate(layernorm_noaffine(x), sh, sc)
-    return x @ full("out_proj", tree["out_proj"])
+    return x @ top["out_proj"]
 
 
 def dit_loss(params, cfg: ArchConfig, batch, abar_full):

@@ -388,11 +388,11 @@ def run_parataa_cell(*, mesh=None, mesh_label: str = "one-card",
     reference's bf16 params meet float32 latents and compute in float32).
 
     Counted through the serving engine's own code path: a
-    ``SamplingEngine`` (``serve.make_engine``: ``dit_defs`` as its
-    ``param_defs``) on ``Placement.host()``, or with ``mesh`` (a
-    ``DeviceMesh``; the dry-run's are ``fake_mesh``'s) on
+    ``SamplingEngine`` (``serve.make_engine``) on ``Placement.host()``, or
+    with ``mesh`` (a ``DeviceMesh``; the dry-run's are ``fake_mesh``'s) on
     ``Placement.for_mesh(mesh)``: the requests rounded up to the data
-    shards, this rank's lanes, its blocks of the DiT (tensor-parallel over
+    shards, this rank's lanes, its blocks of the DiT
+    (``steps.abstract_model_state(mesh=)``: tensor-parallel over
     ``model``, FSDP over the data axes) — rank 0's program, the same on
     every rank up to its coordinates.  The TAA round runs on each data
     shard's lanes, replicated over ``model``.
@@ -427,7 +427,7 @@ def run_parataa_cell(*, mesh=None, mesh_label: str = "one-card",
     spec = get_sampler("taa", order_k=8, history_m=history_m, window=window,
                        s_max=2 * T)
     params, _ = S.abstract_model_state(cfg, with_opt=False,
-                                       dtype=torch.float32)
+                                       dtype=torch.float32, mesh=mesh)
     engine = make_engine(params, cfg, coeffs, spec, num_tokens=n_tok,
                          device=META, placement=placement)
     lo, hi = placement.lanes(n_samples)

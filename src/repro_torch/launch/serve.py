@@ -42,11 +42,14 @@ warm-start cache, ``--trace-out`` a Chrome-trace JSON
 rank mesh (``repro_torch.launch.mesh``): one process per rank under
 ``torchrun``, NCCL on the card and gloo with ``--device cpu``.  The
 request axis shards over ``data``, a ``*-time`` mesh's ``time`` axis
-shards each solve window, and the DiT runs replicated over ``model``;
-results equal the run without ``--mesh``.  Rank 0 decides the serving
-loop's rounds and is the only rank that prints.  ``--donate`` is accepted
-and changes nothing (eager PyTorch has no compiled program to donate
-buffers to).  ``--chaos-drop N --chaos-round R`` (with ``--serve-async
+shards each solve window, and the DiT runs tensor-parallel over
+``model`` on each rank's blocks of its weights (the card keeps the
+blocks; under ``--chaos-drop`` the whole tree is kept on the host, for
+the rebuild to re-slice).  Results equal the run without ``--mesh`` bit
+for bit at one model rank, and within float32 rounding above it.  Rank 0
+decides the serving loop's rounds and is the only rank that prints.
+``--donate`` is accepted and changes nothing (eager PyTorch has no
+compiled program to donate buffers to).  ``--chaos-drop N --chaos-round R`` (with ``--serve-async
 --chunk-iters K``) serves through the ``ResilientServingLoop``, which
 loses N ranks at round R and rebuilds the engines on the survivors:
 
@@ -68,7 +71,7 @@ import numpy as np
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs.registry import get_arch
 from repro_torch.core import ddim_coeffs, ddpm_coeffs
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_host
 from repro_torch.diffusion.convert import dit_init
 from repro_torch.diffusion.dit import dit_apply, dit_defs
 from repro_torch import comm
@@ -82,6 +85,7 @@ from repro_torch.serving import (Batcher, BatchingPolicy, EngineKey,
                                  EngineRegistry, FaultInjector,
                                  RefinePlanner, RefinePolicy, RequestQueue,
                                  ResilientServingLoop, ServingLoop)
+from repro_torch.tree import map_tree
 
 
 def make_eps_apply(cfg):
@@ -116,8 +120,8 @@ def make_placement(mesh_name: str = "none", *, data_parallel: int = 0,
 def make_engine(params, cfg, coeffs, spec, *, num_tokens=16, device=None,
                 noise_fn=None, placement: Placement = None) -> SamplingEngine:
     """The DiT's engine; on a mesh the DiT runs tensor-parallel on each
-    rank's blocks of ``params`` (``dit_defs``), as the JAX package's
-    serving engine shards it."""
+    rank's blocks of ``params`` (``dit_defs``; or ``params`` are those
+    blocks already), as the JAX package's serving engine shards it."""
     return SamplingEngine(make_eps_apply(cfg), params, coeffs, spec,
                           sample_shape=(num_tokens, cfg.latent_dim),
                           device=device, noise_fn=noise_fn,
@@ -162,12 +166,25 @@ def resolve_spec(args, solver: str):
 
 
 def make_engine_factory(cfg, params, args, device, *, num_tokens=16,
-                        placement: Placement = None):
+                        placement: Placement = None, blocks=None):
     """EngineKey -> SamplingEngine factory: one shared denoiser, device and
     placement, per-key step count and solver (the registry caches the
-    instances)."""
+    instances).  On a mesh the engines of one placement share its blocks
+    of ``params`` (``blocks``, when ``placement``'s are sliced already),
+    sliced once from the whole tree where it is held; a new placement (a
+    rebuild onto the survivors) re-slices it."""
+    shared = {} if blocks is None else dict(placement=placement,
+                                            blocks=blocks)
+
     def factory(key: EngineKey, plc: Placement = placement):
-        return make_engine(params, cfg, resolve_coeffs(args, key.T),
+        weights = params
+        if plc is not None and plc.is_sharded:
+            if shared.get("placement") is not plc:
+                shared.clear()
+                shared.update(placement=plc, blocks=plc.shard_params(
+                    params, dit_defs(cfg), resolve_device(device)))
+            weights = shared["blocks"]
+        return make_engine(weights, cfg, resolve_coeffs(args, key.T),
                            resolve_spec(args, key.solver),
                            num_tokens=num_tokens, device=device,
                            placement=plc)
@@ -211,13 +228,15 @@ def simulated_request(rng, cfg, args, *,
                          seed=int(rng.integers(1 << 30)), **kw)
 
 
-def serve_async(args, cfg, params, device, placement: Placement = None):
+def serve_async(args, cfg, params, device, placement: Placement = None,
+                blocks=None):
     """Drive the ``repro_torch.serving`` stack with a simulated request
     stream; returns (stacked x0 latents, per-request stats) on rank 0
-    (every other rank follows rank 0's rounds and returns (None, []))."""
+    (every other rank follows rank 0's rounds and returns (None, [])).
+    ``blocks``: ``placement``'s blocks of the DiT, sliced already."""
     keys = mixed_engine_keys(args)
     factory = make_engine_factory(cfg, params, args, device,
-                                  placement=placement)
+                                  placement=placement, blocks=blocks)
     registry = EngineRegistry(factory)
     policy = BatchingPolicy(max_batch=args.batch_size or 8,
                             max_wait_s=args.max_wait_ms / 1e3)
@@ -528,15 +547,29 @@ def _serve(args, device, placement: Placement):
         if tree is not None:
             params = tree["params"]
             print(f"restored checkpoint step {tree['step']}")
+    blocks = None
+    if placement.is_sharded:
+        # the card keeps this rank's blocks; the whole tree only where a
+        # rebuild re-slices it onto the survivors (--chaos-drop), and
+        # there on the host
+        t0 = time.monotonic()
+        blocks = placement.shard_params(params, dit_defs(cfg))
+        t1 = time.monotonic()
+        params = map_tree(to_host, params) if args.chaos_drop else None
+        kept = f", the whole tree kept on the host in " \
+            f"{time.monotonic() - t1} s" if args.chaos_drop else ""
+        print(f"weights: this rank's blocks sliced in {t1 - t0} s{kept} "
+              f"(host clock)")
     if args.serve_async:
-        return serve_async(args, cfg, params, device, placement)
+        return serve_async(args, cfg, params, device, placement, blocks)
     if args.chaos_drop:
         raise SystemExit("--chaos-drop requires --serve-async "
                          "--chunk-iters > 0")
 
     coeffs = resolve_coeffs(args, args.steps_T)
-    engine = make_engine(params, cfg, coeffs, resolve_spec(args, args.solver),
-                         device=device, placement=placement)
+    engine = make_engine(params if blocks is None else blocks, cfg, coeffs,
+                         resolve_spec(args, args.solver), device=device,
+                         placement=placement)
 
     rng = np.random.default_rng(args.seed)
     requests = [SampleRequest(label=int(rng.integers(0, cfg.num_classes)),

@@ -9,7 +9,7 @@ On a mesh, the reference's shardings become PartitionSpec entries
 rules and divisibility) and ``input_specs(mesh=)`` returns the inputs as
 ``DTensor``s with those placements on the ``DeviceMesh``.
 ``abstract_model_state(cfg, mesh=)`` gives the DiT's rank-local blocks
-(``pdefs.local_block``, what ``Placement.shard_params`` hands the
+(``ShardedParams.build``, the slicing ``Placement.shard_params`` hands the
 tensor-parallel DiT); the LM backbones and the caches on a mesh wait for
 their tensor-parallel forms (``LM_MESH_ITEM``).
 
@@ -29,7 +29,8 @@ from repro_torch.diffusion import dit as dit_mod
 from repro_torch.diffusion.schedules import make_schedule
 from repro_torch.models import backbone
 from repro_torch.models.pdefs import (dtensor_placements, leaf_dtype,
-                                      local_shape, map_defs, resolve_axis)
+                                      map_defs, resolve_axis)
+from repro_torch.models.shardctx import ShardedParams
 from repro_torch.optim import AdamWConfig, adamw_update, lr_schedule
 from repro_torch.tree import flatten_with_paths, leaves, map_tree, unflatten
 
@@ -294,26 +295,29 @@ def abstract_model_state(cfg: ArchConfig, with_opt: bool = True,
     """(params, optimizer state or None) as empty tensors on ``device``,
     each param leaf in its spec's dtype or ``dtype``; the AdamW state
     float32 (master, mu, nu) and its int32 count.  On a ``DeviceMesh``
-    (the DiT only) every leaf is this rank's block of it
-    (``pdefs.local_shape``: heads, mlp and the adaLN columns over
-    ``model``, embed rows over the data axes) and the optimizer state
-    matches the blocks."""
+    (the DiT only) the params are this rank's
+    :class:`~repro_torch.models.shardctx.ShardedParams` (heads, mlp and
+    the adaLN columns over ``model``, embed rows over the data axes: what
+    a sharded ``SamplingEngine`` runs the DiT on) and the optimizer state
+    matches its blocks."""
     if mesh is not None and not cfg.is_diffusion:
         raise NotImplementedError(
             f"abstract_model_state(mesh=) for {cfg.name}: {LM_MESH_ITEM}")
     defs = dit_mod.dit_defs(cfg) if cfg.is_diffusion else \
         backbone.build_defs(cfg)
     params = map_defs(lambda _, spec: torch.empty(
-        spec.shape if mesh is None else local_shape(spec, mesh),
-        dtype=leaf_dtype(spec, dtype), device=device), defs)
+        spec.shape, dtype=leaf_dtype(spec, dtype), device=device), defs)
+    if mesh is not None:
+        params = ShardedParams.build(params, defs, mesh)
     if not with_opt:
         return params, None
 
     def f32_like(p):
         return torch.empty(p.shape, dtype=torch.float32, device=device)
 
-    opt = {"master": map_tree(f32_like, params),
-           "mu": map_tree(f32_like, params),
-           "nu": map_tree(f32_like, params),
+    local = params.local if mesh is not None else params
+    opt = {"master": map_tree(f32_like, local),
+           "mu": map_tree(f32_like, local),
+           "nu": map_tree(f32_like, local),
            "count": torch.zeros((), dtype=torch.int32, device=device)}
     return params, opt

@@ -4,10 +4,10 @@ shapes, inits, per-leaf dtypes and logical axes (the JAX package's
 onto a rank mesh with the same divisibility fallback (``resolve_specs``,
 the reference's PartitionSpec entries as tuples).  A rank's block of a
 leaf is its coordinate's contiguous slice of every sharded dim, as a
-``NamedSharding`` lays it out (:func:`local_shape`, :func:`local_block`:
-the tensor-parallel DiT's parameters, ``Placement.shard_params``), and
+``NamedSharding`` lays it out (:func:`local_block`: the tensor-parallel
+DiT's parameters, ``Placement.shard_params``), and
 :func:`dtensor_placements` turns a spec into the ``Shard``/``Replicate``
-placements of a ``DeviceMesh`` (``Placement.distribute_params``).
+placements of a ``DeviceMesh`` (``steps.input_specs(mesh=)``).
 
 A params tree is nested dicts and lists laid out as the reference's, so
 its leaves have the reference's paths (dict keys, and list indices as
@@ -142,12 +142,6 @@ def entry_index(entry, mesh) -> int:
     for axis in entry_axes(entry):
         index = index * sizes[axis] + mesh.get_local_rank(axis)
     return index
-
-
-def local_shape(spec: ParamSpec, mesh) -> Tuple[int, ...]:
-    """The shape of a rank's block of ``spec``'s leaf on ``mesh``."""
-    return tuple(dim // entry_size(entry, mesh) for dim, entry in
-                 zip(spec.shape, resolve_spec(spec, mesh)))
 
 
 def local_block(x: torch.Tensor, entries: Tuple, mesh) -> torch.Tensor:

@@ -28,8 +28,9 @@ and a collective is an explicit call.  What carries over:
     (``pdefs.local_block``: heads, mlp and the adaLN columns over
     ``model``, the embed rows over the data axes) with the process groups
     they are blocks over.  ``dit_apply`` given one runs the Megatron
-    forward: it all-gathers a leaf's embed rows just before the block that
-    uses it (``gather``: exact), all-gathers the adaLN columns
+    forward: it all-gathers the embed rows of a block's leaves just before
+    the block, in one flat all-gather (``gather``: exact; nothing moves
+    over data axes of one rank), all-gathers the adaLN columns
     (``model_cat``) and sums the row-parallel partials (``model_sum``)
     over ``model``.  Given a plain tree it runs every head on every rank.
 """
@@ -193,6 +194,7 @@ class ShardedParams:
     mesh:       the ``DeviceMesh``
     model_axis: the tensor-parallel axis; every other sharded axis is
                 FSDP, gathered before use
+    groups:     a spec entry's axes -> their process group
     """
     local: object
     specs: Dict[str, Tuple]
@@ -202,10 +204,12 @@ class ShardedParams:
         default_factory=dict)
 
     @classmethod
-    def build(cls, params, defs, mesh, model_axis: str = "model"
-              ) -> "ShardedParams":
+    def build(cls, params, defs, mesh, model_axis: str = "model",
+              place=None) -> "ShardedParams":
         """Slice ``params`` (the full tree, the same on every rank) into
-        this rank's blocks by ``defs``' logical axes.  Multi-axis groups
+        this rank's blocks by ``defs``' logical axes, one leaf at a time
+        (``place(leaf)``, when given, first makes the leaf whole on the
+        rank: so only one whole leaf is live at once).  Multi-axis groups
         come from ``launch.mesh.axes_group`` (made once per mesh; every
         mesh rank builds the same carrier)."""
         from repro_torch.launch.mesh import axes_group
@@ -216,7 +220,8 @@ class ShardedParams:
         for x, (path, spec) in zip(leaves(params), pdefs.walk(defs)):
             entries = pdefs.resolve_spec(spec, mesh)
             specs[path_name(path)] = entries
-            blocks.append(pdefs.local_block(x, entries, mesh))
+            blocks.append(pdefs.local_block(
+                x if place is None else place(x), entries, mesh))
         groups = {}
         for entries in specs.values():
             for entry in entries:
@@ -241,15 +246,35 @@ class ShardedParams:
         forward must not reduce over model)."""
         return any(self.model_axis in entry_axes(e) for e in self.specs[path])
 
-    def gather(self, path: str, x: torch.Tensor) -> torch.Tensor:
-        """``x`` (a block of ``path``'s leaf, or of one layer of it) with
-        every dim that is split over axes other than model all-gathered
-        back (ZeRO-3: exact data movement, in coordinate order)."""
-        for dim, entry in enumerate(self._entries(path, x.dim())):
-            axes = entry_axes(entry)
-            if axes and self.model_axis not in axes:
-                x = comm.all_gather_cat(x, self.groups[axes], dim)
-        return x
+    def gather(self, blocks: Dict[str, torch.Tensor]
+               ) -> Dict[str, torch.Tensor]:
+        """``blocks`` (leaf path -> a block of its leaf, or of one layer of
+        it) with the dim each splits over axes other than model (its
+        ``embed`` dim, the only one the rules put there) all-gathered
+        back, in coordinate order (ZeRO-3: exact data movement).  The
+        blocks split over the same axes move in one flat all-gather; axes
+        of one rank move nothing."""
+        todo: Dict[Tuple[str, ...], list] = {}
+        for path, x in blocks.items():
+            for dim, entry in enumerate(self._entries(path, x.dim())):
+                axes = entry_axes(entry)
+                if axes and self.model_axis not in axes \
+                        and comm.group_size(self.groups[axes]) > 1:
+                    todo.setdefault(axes, []).append((path, dim))
+        out = dict(blocks)
+        for axes, items in todo.items():
+            group = self.groups[axes]
+            n = comm.group_size(group)
+            flat = comm.all_gather_cat(torch.cat(
+                [blocks[p].reshape(-1) for p, _ in items]), group, 0
+            ).view(n, -1)
+            start = 0
+            for path, dim in items:
+                x = blocks[path]
+                part = flat[:, start:start + x.numel()].reshape(n, *x.shape)
+                out[path] = part.movedim(0, dim).flatten(dim, dim + 1)
+                start += x.numel()
+        return out
 
     @property
     def model_group(self):
@@ -265,7 +290,8 @@ class ShardedParams:
 
     def model_sum(self, path: str, x: torch.Tensor) -> torch.Tensor:
         """The partial sums of a row-parallel product by ``path``'s leaf,
-        added over model (``x`` itself where the leaf is whole)."""
+        added over model in place (``x``, a product no one else reads, is
+        returned as it is where the leaf is whole)."""
         if not self.sharded(path):
             return x
-        return comm.all_reduce_sum(x, self.model_group)
+        return comm.all_reduce_sum_(x, self.model_group)

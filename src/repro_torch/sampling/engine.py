@@ -69,6 +69,7 @@ from repro_torch.core import parataa as _parataa
 from repro_torch.core.coeffs import SolverCoeffs
 from repro_torch.device import DeviceLike, resolve_device, to_device
 from repro_torch.diffusion.samplers import _sequential_sample, draw_noises
+from repro_torch.models.shardctx import ShardedParams
 from repro_torch.obs import Observability, StatsView
 from repro_torch.sampling.placement import Placement
 from repro_torch.sampling.specs import SamplerSpec
@@ -199,9 +200,12 @@ class SamplingEngine:
                   lane/window layout); default the host placement
     param_defs:   the denoiser's ``ParamSpec`` tree: on a mesh placement
                   each rank keeps its blocks of ``params`` by their
-                  logical axes and the denoiser runs tensor-parallel
-                  (``Placement.shard_params``); None = the whole tree on
-                  every rank
+                  logical axes, on ``device``, and the denoiser runs
+                  tensor-parallel (``Placement.shard_params``); None = the
+                  whole tree on every rank.  ``params`` that are already a
+                  rank's ``ShardedParams`` on the placement's mesh are
+                  used as they are (engines of one placement can share
+                  them)
     noise_fn:     request -> (T+1, *sample_shape) noise; default draws from
                   a torch.Generator seeded with ``request.seed``
     clock:        monotonic timestamp source for ``wall_s``/``pack_s`` and
@@ -232,12 +236,16 @@ class SamplingEngine:
         self.dtype = dtype
         self.device = resolve_device(device)
         self.placement = placement or Placement.host()
-        if self.placement.is_sharded and params is not None:
-            params = self.placement.shard_params(params, param_defs)
+        if isinstance(params, ShardedParams):
+            if params.mesh is not self.placement.mesh:
+                raise ValueError("params: blocks of another mesh than the "
+                                 "placement's")
+        elif self.placement.is_sharded and params is not None:
+            params = self.placement.shard_params(params, param_defs,
+                                                 self.device)
         self.params = params
         #: whether the denoiser runs on this rank's blocks over ``model``
-        self.denoiser_sharded = self.placement.is_sharded \
-            and param_defs is not None
+        self.denoiser_sharded = isinstance(params, ShardedParams)
         self.noise_fn = noise_fn or self.draw_request_noise
         self._clock = clock
         self.obs = obs if obs is not None else Observability.off()

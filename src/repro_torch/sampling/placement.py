@@ -22,7 +22,6 @@ holds:
     the adaLN columns over ``model``, embed rows over the data axes), and
     the DiT runs tensor-parallel on them; without one it broadcasts the
     whole tree and the denoiser runs replicated over ``model``.
-    :meth:`distribute_params` places the same tree as ``DTensor``s.
 
 ``Placement.host()`` is the no-mesh placement: every method is an
 identity, and an engine built with it is the single-device engine.  A
@@ -302,15 +301,18 @@ class Placement:
             return x
         return comm.all_gather_cat(x, self.data_group, 0)
 
-    def shard_params(self, params, param_defs=None):
+    def shard_params(self, params, param_defs=None, device=None):
         """Place denoiser params on the mesh (identity off-mesh and on a
         rank outside it).  Every tensor is first broadcast from the mesh's
-        first rank.  No defs: that replicated tree.  A ``ParamSpec`` tree:
-        this rank's blocks of it, by its logical axes
+        first rank.  No defs: that replicated tree, in place.  A
+        ``ParamSpec`` tree: this rank's blocks of it, by its logical axes
         (``pdefs.resolve_spec`` -> ``pdefs.local_block``: TP over
         ``model``, FSDP over the data axes, the reference's rules), as a
         :class:`~repro_torch.models.shardctx.ShardedParams` the DiT runs
-        tensor-parallel on."""
+        tensor-parallel on.  ``device``: where the blocks live, when the
+        tree is held elsewhere (the host); each leaf is copied, broadcast
+        and sliced in turn, so the device holds the blocks and one whole
+        leaf at a time."""
         if not self.is_sharded or not self.is_member:
             return params
         src = self.ranks[0]
@@ -324,36 +326,19 @@ class Placement:
             elif isinstance(x, (list, tuple)):
                 for v in x:
                     bcast(v)
+            return x
 
-        with torch.no_grad():
-            bcast(params)
         if param_defs is None:
-            return params
+            with torch.no_grad():
+                return bcast(params)
         from repro_torch.models.shardctx import ShardedParams
 
+        def place(x):
+            with torch.no_grad():
+                return bcast(x if device is None else x.to(device))
+
         return ShardedParams.build(params, param_defs, self.mesh,
-                                   self.model_axis)
-
-    def distribute_params(self, params, param_defs):
-        """The same tree as ``DTensor``s placed by its logical axes
-        (``pdefs.dtensor_placements``), distributed from the mesh's first
-        rank's values: each one's ``to_local()`` is the block
-        :meth:`shard_params` gives (identity off-mesh and on a rank
-        outside it)."""
-        if not self.is_sharded or not self.is_member:
-            return params
-        from torch.distributed.tensor import distribute_tensor
-
-        from repro_torch.models import pdefs
-        from repro_torch.tree import leaves, unflatten
-
-        def place(x, spec):
-            return distribute_tensor(x, self.mesh, pdefs.dtensor_placements(
-                pdefs.resolve_spec(spec, self.mesh), self.mesh))
-
-        return unflatten(params, [
-            place(x, spec) for x, (_, spec) in
-            zip(leaves(params), pdefs.walk(param_defs))])
+                                   self.model_axis, place=place)
 
     # -- activation context ---------------------------------------------------
 

@@ -298,9 +298,10 @@ class ResilientServingLoop(ServingLoop):
         Every lane's ticket stays open through the rebuild; a bank that
         cannot be migrated resubmits its tickets instead.  An engine
         factory that shards its denoiser (``param_defs``, as
-        ``serve.make_engine`` does) re-slices the full parameter tree each
-        rank keeps (the factory's) onto the survivors' mesh: nothing is
-        gathered from the lost ranks."""
+        ``serve.make_engine`` does) re-slices the whole parameter tree
+        each rank keeps (the factory's; on the host under ``serve.py
+        --mesh``) onto the survivors' mesh: nothing is gathered from the
+        lost ranks."""
         if not survivors:
             return self._abort(DeviceLossError(
                 f"no surviving devices ({cause})"))

@@ -100,7 +100,8 @@ def test_rank_param_bytes_are_the_tree_over_its_blocks(name, sizes,
                                        dtype=torch.float32, mesh=mesh)[0]
         sizes_of = dict(zip(mesh.mesh_dim_names, shape))
         total = 0
-        for (path, spec), leaf in zip(pdefs.walk(defs), leaves(local)):
+        assert isinstance(local, ShardedParams)
+        for (path, spec), leaf in zip(pdefs.walk(defs), leaves(local.local)):
             entries = pdefs.resolve_spec(spec, mesh)
             assert entries == want["/".join(map(str, path))], path
             blocks = int(np.prod([sizes_of[a] for e in entries
@@ -127,7 +128,8 @@ def _formula_bytes(rec_cfg, plc, lanes: int, window: int, n_tok: int,
     (lanes·window, N, d) float32 partials + the poll's int32 flag; the
     adaLN all-gathers over model (each rank's 6d/m, and 2d/m, columns of
     lanes·window rows) + every leaf's block, gathered over the data axes
-    (a stacked leaf layer by layer: its whole block)."""
+    (a stacked leaf layer by layer, a block's leaves together: its whole
+    block)."""
     cfg, m = rec_cfg, plc.model_shards
     rows = lanes * window
     d, L = cfg.d_model, cfg.num_layers
@@ -160,11 +162,13 @@ def test_parataa_record_on_registry_shaped_meshes(name, sizes, tiers):
     assert rec["placement"] == want_plc.describe().replace(
         "denoiser over", "denoiser TP-sharded over")
     lanes = rec["n_samples"] // plc.data_shards
-    want = _formula_bytes(cfg, plc, lanes, 64, 32, local)
+    want = _formula_bytes(cfg, plc, lanes, 64, 32, local.local)
     assert rec["collective_breakdown"] == want, (rec["collective_breakdown"],
                                                  want)
     L = cfg.num_layers
-    assert rec["collective_counts"] == {"all-gather": 9 * L + 7,
+    # a block's leaves in one flat FSDP all-gather, the top-level leaves
+    # in another; one adaLN all-gather a block and one for final_ada
+    assert rec["collective_counts"] == {"all-gather": 2 * (L + 1),
                                         "all-reduce": 2 * L + 1}
     by_link = rec["collective_by_link"]
     assert {t for t, n in by_link.items() if n} == tiers

@@ -20,6 +20,7 @@ from repro_torch.launch import mesh as tmesh
 from repro_torch.sampling import (Placement, SampleRequest, SamplingEngine,
                                   get_sampler)
 from tests.test_torch_helpers import label_arrays, torch_label_denoiser
+from tests.test_torch_tp_dit import distribute_params
 
 
 def test_registry_matches_jax():
@@ -141,7 +142,7 @@ def test_world_of_one_meshes_and_sharded_engine(gloo_world_of_one):
 
 
 def test_world_of_one_param_and_input_placements(gloo_world_of_one):
-    """``Placement.distribute_params(params, defs)`` places each leaf as
+    """``distribute_params(placement, params, defs)`` places each leaf as
     a DTensor by its logical axes (its local block is ``shard_params``'
     block); ``input_specs(mesh=)`` the inputs by ``input_partition`` (one
     rank: every block is the whole tensor)."""
@@ -158,7 +159,7 @@ def test_world_of_one_param_and_input_placements(gloo_world_of_one):
     mesh = tmesh.make_mesh("debug", data_parallel=1, model_parallel=1,
                            device_type="cpu")
     plc = Placement.for_mesh(mesh)
-    placed = plc.distribute_params(params, defs)
+    placed = distribute_params(plc, params, defs)
     blocks = _leaves(plc.shard_params(params, defs).local)
     for (path, spec), leaf, block in zip(pdefs.walk(defs), _leaves(placed),
                                          blocks):

@@ -10,8 +10,8 @@ and each package gets its own copy.
   (2, 1) and (2, 2): within 1e-5 relative of the unsharded port and of the
   reference's ``dit_apply``; bit for bit at model = 1; its collectives
   equal the formula (2L all-reduces and L + 1 all-gathers over model,
-  8L + 6 over data); each block equals ``distribute_params``' DTensor's
-  ``to_local()``.
+  L + 1 over data, none over data of one rank); each block equals the
+  ``to_local()`` of ``distribute_params``' DTensor.
 * ``SamplingEngine(param_defs=dit_defs)`` — ``run_batch`` and a stepwise
   drain with a mid-solve refill — on ``debug`` (data 2 × model 2) and
   ``debug-time`` (time 2 × model 2): within 1e-4 relative of the host
@@ -82,12 +82,30 @@ def _flat(tree, prefix="p") -> dict:
     return out
 
 
-def dit_counts(L: int) -> dict:
+def dit_counts(L: int, data: int) -> dict:
     """Collectives of one tensor-parallel DiT call whose every leaf
     divides its mesh: 2L all-reduces over model; L + 1 all-gathers over
-    model (the adaLN columns) and 8L + 6 over the data axes (every leaf's
-    embed rows)."""
-    return {"all-reduce": 2 * L, "all-gather": (L + 1) + (8 * L + 6)}
+    model (the adaLN columns) and, over data axes of more than one rank,
+    L + 1 of the embed rows (a block's leaves in one flat all-gather, the
+    top-level leaves in another)."""
+    return {"all-reduce": 2 * L,
+            "all-gather": (L + 1) + (L + 1 if data > 1 else 0)}
+
+
+def distribute_params(plc, params, defs):
+    """The reference layout as ``DTensor``s: each leaf of ``params``
+    distributed from the mesh's first rank by its logical axes
+    (``pdefs.dtensor_placements``), whose ``to_local()`` must be the block
+    ``Placement.shard_params`` gives."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.models import pdefs
+    from repro_torch.tree import leaves, unflatten
+
+    return unflatten(params, [
+        distribute_tensor(x, plc.mesh, pdefs.dtensor_placements(
+            pdefs.resolve_spec(spec, plc.mesh), plc.mesh))
+        for x, (_, spec) in zip(leaves(params), pdefs.walk(defs))])
 
 
 def _noise(inputs: dict):
@@ -137,7 +155,7 @@ def _dit_part(inputs: dict, params) -> dict:
             got = dit.dit_apply(sharded, cfg, *args)
             counts = {k: comm.counts[k] for k in ("all-gather",
                                                   "all-reduce")}
-        dtensors = plc.distribute_params(params, defs)
+        dtensors = distribute_params(plc, params, defs)
         out[name] = {
             "host": _rel(got.numpy(), host.numpy()),
             "jax": _rel(got.numpy(), inputs["eps_jax"]),
@@ -370,7 +388,7 @@ def test_tp_dit_apply_matches_unsharded_and_jax(tp_runs, name):
     L, H = _cfg().num_layers, _cfg().num_heads
     for out in outs:
         assert out["host"] < 1e-5 and out["jax"] < 1e-5, out
-        assert out["counts"] == dit_counts(L), out
+        assert out["counts"] == dit_counts(L, data), out
         assert out["wq"] == [L, 128 // data, H // model, 32], out
         assert out["same_blocks"], out
         assert "denoiser TP-sharded over model" in out["describe"]
@@ -440,9 +458,10 @@ def test_tp_engine_matches_host_and_jax_gspmd(tp_runs):
     and of the reference's GSPMD-sharded engine, iters/nfe equal, and the
     DiT's collectives an iteration by the formula."""
     outs, port, want = tp_runs
-    per_call = dit_counts(_cfg().num_layers)
     for out in outs:
         for name, rec in out["engine"].items():
+            per_call = dit_counts(_cfg().num_layers,
+                                  MESHES[name].get("data_parallel", 1))
             assert rec["sharded"] and rec["report"]["denoiser_sharded"]
             assert rec["report"]["model_shards"] == 2
             assert rec["host"] < 1e-4 and rec["same_iters"], (name, rec)
@@ -512,7 +531,7 @@ def test_tp_path_at_one_rank_is_the_host_path_bit_for_bit(tmp_path):
             comm.reset()
             got = dit.dit_apply(sharded, cfg, x, t, y)
             assert {k: comm.counts[k] for k in ("all-gather", "all-reduce")
-                    } == dit_counts(cfg.num_layers)
+                    } == dit_counts(cfg.num_layers, 1)
             assert torch.equal(got, dit.dit_apply(params, cfg, x, t, y))
         params_grad = {k: v for k, v in sharded.local.items()}
         params_grad["in_proj"] = params_grad["in_proj"].clone() \
@@ -531,6 +550,23 @@ def test_tp_path_at_one_rank_is_the_host_path_bit_for_bit(tmp_path):
         for a, b in zip(run(plc), run(None)):
             assert np.array_equal(a.trajectory, b.trajectory)
             assert (a.iters, a.nfe) == (b.iters, b.nfe)
+        # the serving factory: the engines of one placement share its
+        # blocks (sliced once); a new placement re-slices
+        from types import SimpleNamespace
+
+        from repro_torch.models.shardctx import ShardedParams
+        from repro_torch.serving import EngineKey
+
+        args = SimpleNamespace(sampler="ddim", order_k=8, history_m=3,
+                               window=0, use_pallas="auto", fuse_round=False)
+        factory = serve.make_engine_factory(cfg, params, args, "cpu",
+                                            num_tokens=NT, placement=plc)
+        a, b = (factory(EngineKey("dit-xl", k, "taa")) for k in (T, T // 2))
+        assert isinstance(a.params, ShardedParams) and a.params is b.params
+        other = Placement.for_mesh(tmesh.make_mesh(
+            "debug", data_parallel=1, model_parallel=1, device_type="cpu"))
+        c = factory(EngineKey("dit-xl", T, "taa"), other)
+        assert c.denoiser_sharded and c.params is not a.params
     finally:
         dist.destroy_process_group()
 
