@@ -195,11 +195,35 @@ is not 0):
    heads split 8 a rank, against the host placement in float32 at 16
    tokens: eps within 1e-5, trajectories within 1e-4, iters and nfe
    equal (fused).
+12. the LM backbones tensor-parallel over ``model`` (``models.backbone``
+   on a rank's ``ShardedParams`` and ``ShardedCache``), last.  (a) a
+   world of one over NCCL on a (1, 1) ``debug`` mesh: qwen3-0.6b at full
+   width and depth, float32 with TF32 off, prefill 2 x 512 and 8 decode
+   steps bit for bit the host path, each call's collectives by
+   ``backbone.tp_collectives``, prefill ms and decode ms a token host /
+   TP (CUDA events); phase 7's wrapper (latent 8, 16 tokens, T=50) as
+   eps_theta through ``SamplingEngine(param_defs=wrapper_defs)``, staged
+   and fused, bit for bit the host placement with equal iters, nfe,
+   polls and K1-K3 launches.  (b) two processes on the one card in a
+   gloo group (``chip_smoke.py --tp-lm-gloo-rank R DIR``), ``debug`` with
+   model 2, float32 at full width: qwen3-0.6b (28 layers),
+   recurrentgemma-2b (one period: two RG-LRU layers and local attention
+   over an MQA cache split over slots, softcap), mamba2-1.3b (2 layers)
+   and qwen2-moe-a2.7b (2 layers: experts over model and the shared
+   MLP); each prefill 2 x 512 and 8 decodes within 1e-5 relative of the
+   host tree's logits, collectives by the formula, prefill and decode ms
+   host / TP; qwen3-0.6b's wrapper engine (fused) with equal iters and
+   nfe.  (c) ``python -m repro_torch.launch.dryrun --all --mesh both`` in
+   a subprocess (started before phase 11: it needs no card): every LM
+   prefill and decode cell on pod (256) and multi-pod (512) at full
+   width, rank 0's tensor-parallel program in a fake world, one modeled
+   record printed a cell.
 
 Then one JSON line of per-kernel numbers (K1-K3 with ``wrapper_launches``,
 phase 7's, ``ssm_wrapper_launches``, phase 8's,
 ``use_pallas_auto_launches``, phase 9 (b)'s, ``mesh_launches``, phase
-10 (a)'s mesh run, and ``tp_launches``, phase 11 (a)'s TP run; K3 with
+10 (a)'s mesh run, ``tp_launches``, phase 11 (a)'s TP run, and
+``tp_lm_launches``, phase 12 (a)'s TP wrapper run; K3 with
 ``tf32_launches``, phase 9 (a)'s), and last the
 line
 ``{"ok": true, "device": {...}}``.  Without CUDA, or run from a directory
@@ -2910,6 +2934,423 @@ def tp_gloo_rank(rank: int, work: Path) -> None:
     dist.destroy_process_group()
 
 
+# --- phase 12: the LM backbones tensor-parallel over model -----------------
+
+#: prefill batch x tokens and decode steps of (a) and (b)
+TP_LM_BATCH, TP_LM_PROMPT, TP_LM_DECODE = 2, 512, 8
+#: (b)'s models on two gloo ranks: arch -> layers (the depth cut; widths
+#: are the published ones)
+TP_LM_ARCHS = {"qwen3-0.6b": 28, "recurrentgemma-2b": 3, "mamba2-1.3b": 2,
+               "qwen2-moe-a2.7b": 2}
+
+
+def lm_tp_calls(cfg, params, cache, tokens, *, events: bool) -> dict:
+    """Prefill ``tokens[:, :TP_LM_PROMPT]`` (last position), then decode
+    the rest one token at a time on ``params`` (the whole tree, or a
+    rank's ``ShardedParams`` with its ``ShardedCache``): each call's
+    logits, collectives (``comm``, from 0) and ms (CUDA events, or host
+    wall after a synchronize where gloo blocks the host)."""
+    import torch
+
+    from repro_torch import comm
+    from repro_torch.models import backbone as B
+
+    kinds = ("all-gather", "all-reduce", "reduce-scatter")
+
+    def timed(fn):
+        if events:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = fn()
+            end.record()
+            torch.cuda.synchronize()
+            return out, start.elapsed_time(end)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.monotonic() - t0) * 1e3
+
+    out = {"logits": [], "counts": [], "ms": []}
+    with torch.inference_mode():
+        for t in range(TP_LM_PROMPT - 1, tokens.shape[1]):
+            comm.reset()
+            if t == TP_LM_PROMPT - 1:
+                (logits, _), ms = timed(lambda: B.prefill(
+                    params, cfg, tokens[:, :TP_LM_PROMPT], cache))
+            else:
+                (logits, _), ms = timed(lambda: B.decode_step(
+                    params, cfg, tokens[:, t:t + 1], cache))
+            out["logits"].append(logits.float())
+            out["counts"].append({k: comm.counts[k] for k in kinds})
+            out["ms"].append(ms)
+    return out
+
+
+def lm_tp_pair(cfg, params, tp, mesh, tokens, *, events: bool) -> dict:
+    """:func:`lm_tp_calls` on the whole tree and on the rank's blocks (a
+    warm-up of each first), each on a fresh cache."""
+    import torch
+
+    from repro_torch.launch import steps as S
+    from repro_torch.models import backbone as B
+
+    n = tokens.shape[1]
+    cuda = torch.device("cuda")
+
+    def host_cache():
+        return B.init_cache(cfg, TP_LM_BATCH, n, torch.float32, cuda)
+
+    def tp_cache():
+        return S.local_cache(cfg, TP_LM_BATCH, n, mesh, torch.float32, cuda)
+
+    for p, make in ((params, host_cache), (tp, tp_cache)):
+        lm_tp_calls(cfg, p, make(), tokens, events=events)     # warm-up
+    return {"host": lm_tp_calls(cfg, params, host_cache(), tokens,
+                                events=events),
+            "tp": lm_tp_calls(cfg, tp, tp_cache(), tokens, events=events)}
+
+
+def lm_tp_summary(cfg, pair, model: int) -> dict:
+    """Errors, collectives against ``backbone.tp_collectives`` and ms of a
+    :func:`lm_tp_pair`."""
+    import torch
+
+    from repro_torch.models.backbone import tp_collectives
+
+    host, tp = pair["host"], pair["tp"]
+    n = TP_LM_PROMPT + TP_LM_DECODE
+    cap = min(cfg.window_size, n) if cfg.window_size else n
+    want = [tp_collectives(cfg, "prefill", model, 1, TP_LM_PROMPT, cap)] + \
+        [tp_collectives(cfg, "decode", model, 1, 1, cap)] * TP_LM_DECODE
+    rels = [float((a - b).norm() / b.norm())
+            for a, b in zip(tp["logits"], host["logits"])]
+    return dict(
+        prefill_rel=rels[0], decode_rel=max(rels[1:]),
+        bitwise=all(torch.equal(a, b) for a, b in zip(tp["logits"],
+                                                      host["logits"])),
+        counts=tp["counts"][:2], counts_ok=tp["counts"] == want,
+        want=want[:2], prefill_ms=[host["ms"][0], tp["ms"][0]],
+        decode_ms=[statistics.mean(host["ms"][1:]),
+                   statistics.mean(tp["ms"][1:])])
+
+
+def lm_wrapper_engines(cfg, params, placement, modes, *, strict=True):
+    """The wrapper of ``cfg`` as eps_theta through ``SamplingEngine``
+    (phase 7's geometry: latent 8, 16 tokens, T=50, one request): the
+    host placement, then ``placement`` with ``param_defs=wrapper_defs``,
+    for each round mode; K1-K3 launches counted from 0 just before each
+    run.  Returns {mode: {label: run}}."""
+    from repro_torch.core import ddim_coeffs
+    from repro_torch.diffusion import dit
+    from repro_torch.sampling import (SampleRequest, SamplingEngine,
+                                      get_sampler)
+
+    device = params["in_proj"].device
+    out = {}
+    for mode in modes:
+        spec = get_sampler("taa", fuse_round=mode == "fused")
+        for label, plc, defs in (("host", None, None), (
+                "tp", placement, dit.wrapper_defs(cfg, WRAP_LATENT))):
+            engine = SamplingEngine(
+                lambda p, x, taus, y: dit.wrapper_apply(p, cfg, x, taus),
+                params, ddim_coeffs(WRAP_T), spec,
+                sample_shape=(WRAP_TOKENS, WRAP_LATENT), device=device,
+                placement=plc, param_defs=defs)
+            if strict:
+                strict_solves(engine)
+            reset_all_launches()
+            t0 = time.monotonic()
+            res = engine.run_batch([SampleRequest(label=0, seed=SEED)],
+                                   batch_size=1)
+            wall = time.monotonic() - t0
+            d = engine.last_dispatches[0]
+            out.setdefault(mode, {})[label] = dict(
+                results=res, wall_s=wall, launches=all_launches(),
+                iters=d["device_iters"], polls=d["blocking_polls"],
+                sharded=engine.denoiser_sharded)
+    return out
+
+
+def wrapper_weights(cfg, device):
+    """phase 7's wrapper tree drawn on ``device`` (seed ``SEED``, out_proj
+    N(0, WRAP_OUT_SCALE^2))."""
+    import torch
+
+    from repro_torch.diffusion import dit
+    from repro_torch.models.pdefs import init_on_device
+
+    params = init_on_device(dit.wrapper_defs(cfg, WRAP_LATENT), SEED, device,
+                            torch.float32)
+    params["out_proj"].normal_(0.0, WRAP_OUT_SCALE, generator=torch.Generator(
+        device=device).manual_seed(SEED + 1))
+    return params
+
+
+def lm_tensor_parallel_path(dryrun=None):
+    """Phase 12: the LM backbones tensor-parallel over ``model``.  (a) a
+    world of one over NCCL on a (1, 1) ``debug`` mesh: qwen3-0.6b at full
+    width and depth, float32 (TF32 off): prefill 2 x 512 and 8 decode
+    steps on the rank's ``ShardedParams``/``ShardedCache`` bit for bit the
+    host path's, the collectives by ``backbone.tp_collectives``; the
+    wrapper engine (``param_defs=wrapper_defs``) staged and fused bit for
+    bit the host placement's, with equal iters, nfe, polls and K1-K3
+    launches; ms host / TP.  (b) two gloo ranks on the one card, model 2
+    (:func:`tp_lm_on_gloo`).  (c) the dry-run's LM prefill and decode
+    cells on pod and multi-pod (modeled): ``dryrun``, the waiter of a
+    :func:`lm_production_dryrun` started earlier (it needs no card), or
+    one started here."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.models import backbone as B
+    from repro_torch.models.convert import backbone_init_on_device
+    from repro_torch.models.shardctx import ShardedParams
+    from repro_torch.sampling import Placement
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda = torch.device("cuda")
+    rdv = tempfile.mkdtemp(prefix="chip_smoke_rdv_")
+    backend = init_distributed("cuda", world_size=1, rank=0,
+                               init_method=f"file://{rdv}/store",
+                               timeout_s=300)
+    check(backend == "nccl", f"phase 12: backend {backend}")
+    out = {}
+    try:
+        mesh = make_mesh("debug", data_parallel=1, model_parallel=1,
+                         device_type="cuda")
+        cfg = get_arch("qwen3-0.6b")
+        params = backbone_init_on_device(cfg, SEED, cuda, dtype=torch.float32)
+        tp = ShardedParams.build(params, B.build_defs(cfg), mesh)
+        gen = torch.Generator(device=cuda).manual_seed(SEED)
+        tokens = torch.randint(0, cfg.vocab_size, (
+            TP_LM_BATCH, TP_LM_PROMPT + TP_LM_DECODE), generator=gen,
+            device=cuda)
+        summ = lm_tp_summary(cfg, lm_tp_pair(cfg, params, tp, mesh, tokens,
+                                             events=True), 1)
+        print(f"phase 12 (a) qwen3-0.6b ({cfg.num_layers} layers, float32) "
+              f"on the (1, 1) "
+              f"mesh over NCCL: prefill {TP_LM_BATCH} x {TP_LM_PROMPT} + "
+              f"{TP_LM_DECODE} decodes bit for bit the host path "
+              f"{summ['bitwise']}; collectives a prefill / decode "
+              f"{summ['counts']} (formula {summ['want']}); prefill ms host "
+              f"/ TP {summ['prefill_ms']}, decode ms a token "
+              f"{summ['decode_ms']} (CUDA events)")
+        check(summ["bitwise"] and summ["counts_ok"], f"phase 12 (a): {summ}")
+        out["lm"] = summ
+        del params, tp
+        free_card()
+        wparams = wrapper_weights(cfg, cuda)
+        plc = Placement.for_mesh(mesh)
+        runs = lm_wrapper_engines(cfg, wparams, plc, ("fused", "staged"))
+        for mode, r in runs.items():
+            host, tpr = r["host"], r["tp"]
+            k13 = {k: tpr["launches"].get(k, 0) for k in (
+                "taa_gram", "taa_apply", "taa_round")}
+            print(f"phase 12 (a) wrapper engine {mode} on "
+                  f"{plc.describe(True)}: iters host {host['iters']} / TP "
+                  f"{tpr['iters']}, nfe {[x.nfe for x in host['results']]} /"
+                  f" {[x.nfe for x in tpr['results']]}, polls "
+                  f"{host['polls']} / {tpr['polls']}, K1-K3 launches {k13}; "
+                  f"walls s host {host['wall_s']}, TP {tpr['wall_s']}")
+            check(tpr["sharded"] and same_results(tpr["results"],
+                                                  host["results"]),
+                  f"phase 12 (a) {mode}: TP wrapper not bit for bit")
+            check(tpr["launches"] == host["launches"]
+                  and tpr["polls"] == host["polls"]
+                  and tpr["iters"] == host["iters"],
+                  f"phase 12 (a) {mode}: launches/polls/iters differ")
+            want = {"taa_round": tpr["iters"]} if mode == "fused" else \
+                {"taa_gram": tpr["iters"], "taa_apply": tpr["iters"]}
+            check(all(k13[k] == v for k, v in want.items()),
+                  f"phase 12 (a) {mode}: K1-K3 launches {k13}")
+            out[mode] = dict(iters=tpr["iters"], launches=k13,
+                             walls=[host["wall_s"], tpr["wall_s"]])
+        del wparams
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rdv, ignore_errors=True)
+    free_card()
+    if dryrun is None:
+        dryrun = lm_production_dryrun()
+    out["gloo"] = tp_lm_on_gloo()
+    out["dryrun"] = dryrun()
+    return out
+
+
+def tp_lm_on_gloo():
+    """Phase 12 (b): two processes on the one card in a gloo group,
+    ``debug`` with data 1 x model 2, float32 at full width (TP_LM_ARCHS'
+    depths): each model's prefill (2 x 512) and 8 decodes on the rank's
+    blocks against the whole tree in each rank, within 1e-5 relative of
+    the logits, collectives by the formula, prefill and decode ms host /
+    TP; then qwen3-0.6b's wrapper engine (fused): iters and nfe equal,
+    trajectories within 1e-4."""
+    import os
+    import shutil
+    import tempfile
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_lm_"))
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-lm-gloo-rank",
+         str(r), str(work)], cwd=ROOT, env=dict(os.environ),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=900)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    check(all(p.returncode == 0 for p in procs),
+          f"phase 12 (b): a rank failed: {[log[-3000:] for log in logs]}")
+    outs = [json.loads((work / f"rank{r}.json").read_text())
+            for r in range(2)]
+    shutil.rmtree(work, ignore_errors=True)
+    for r, o in enumerate(outs):
+        for arch, m in o["lm"].items():
+            print(f"phase 12 (b) gloo rank {r} of 2, model 2, {arch} "
+                  f"({m['layers']} layers, float32): prefill logits rel err "
+                  f"{m['prefill_rel']}, decode {m['decode_rel']}; "
+                  f"collectives a prefill / decode {m['counts']} (formula "
+                  f"{m['want']}); prefill ms host / TP {m['prefill_ms']}, "
+                  f"decode ms a token {m['decode_ms']} (host wall)")
+            check(m["prefill_rel"] < 1e-5 and m["decode_rel"] < 1e-5
+                  and m["counts_ok"], f"phase 12 (b) {arch}: {m}")
+        w = o["wrapper"]
+        print(f"phase 12 (b) gloo rank {r}: qwen3-0.6b wrapper engine fused "
+              f"({WRAP_TOKENS} tokens, T={WRAP_T}): trajectories rel err "
+              f"{w['rel']}, iters {w['iters']} (host {w['host_iters']}), "
+              f"nfe equal {w['same_nfe']}; walls s host / TP {w['walls']}")
+        check(w["rel"] < 1e-4 and w["iters"] == w["host_iters"]
+              and w["same_nfe"], f"phase 12 (b) wrapper: {w}")
+    print(f"phase 12 (b) in {time.monotonic() - t0} s")
+    return outs
+
+
+def tp_lm_gloo_rank(rank: int, work: Path) -> None:
+    """One rank of phase 12 (b) (``chip_smoke.py --tp-lm-gloo-rank R
+    DIR``)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.models import backbone as B
+    from repro_torch.models.convert import backbone_init_on_device
+    from repro_torch.models.shardctx import ShardedParams
+    from repro_torch.sampling import Placement
+
+    cuda = torch.device("cuda")
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed("cpu", world_size=2, rank=rank,
+                     init_method=f"file://{work}/store", timeout_s=300)
+    # gloo groups; the tensors live on the card
+    mesh = make_mesh("debug", data_parallel=1, model_parallel=2,
+                     device_type="cpu")
+    res = {"lm": {}}
+    for arch, layers in TP_LM_ARCHS.items():
+        cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
+        params = backbone_init_on_device(cfg, SEED, cuda, dtype=torch.float32)
+        tp = ShardedParams.build(params, B.build_defs(cfg), mesh)
+        gen = torch.Generator(device=cuda).manual_seed(SEED)
+        tokens = torch.randint(0, cfg.vocab_size, (
+            TP_LM_BATCH, TP_LM_PROMPT + TP_LM_DECODE), generator=gen,
+            device=cuda)
+        summ = lm_tp_summary(cfg, lm_tp_pair(cfg, params, tp, mesh, tokens,
+                                             events=False), 2)
+        summ.pop("bitwise")
+        res["lm"][arch] = dict(summ, layers=layers)
+        del params, tp
+        torch.cuda.empty_cache()
+    cfg = get_arch("qwen3-0.6b")
+    wparams = wrapper_weights(cfg, cuda)
+    runs = lm_wrapper_engines(cfg, wparams, Placement.for_mesh(mesh),
+                              ("fused",), strict=False)
+    host, tpr = runs["fused"]["host"], runs["fused"]["tp"]
+    res["wrapper"] = dict(
+        rel=rel_traj(tpr["results"], host["results"]), iters=tpr["iters"],
+        host_iters=host["iters"],
+        same_nfe=[a.nfe for a in tpr["results"]]
+        == [b.nfe for b in host["results"]],
+        walls=[host["wall_s"], tpr["wall_s"]])
+    (work / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def lm_production_dryrun():
+    """Phase 12 (c): starts ``python -m repro_torch.launch.dryrun --all
+    --mesh both`` in a subprocess (every LM prefill and decode cell on pod
+    (256 ranks) and multi-pod (512) at full width in fake worlds, rank 0's
+    tensor-parallel program, modeled) and returns the function that waits
+    for it and prints one record a cell."""
+    import os
+
+    out_dir = ROOT / "build" / "chip_smoke_dryrun_lm"
+    t0 = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--mesh", "both", "--out", str(out_dir)], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    return lambda: lm_dryrun_records(proc, out_dir, t0)
+
+
+def lm_dryrun_records(proc, out_dir: Path, t0: float) -> dict:
+    """Waits for phase 12 (c)'s dry-run and prints its LM records."""
+    import shutil
+
+    try:
+        _, err = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    check(proc.returncode == 0, f"phase 12 (c): dry-run failed: {err[-3000:]}")
+    recs = {}
+    for path in sorted(out_dir.glob("*.json")):
+        rec = json.loads(path.read_text())
+        if rec["shape"] in ("train_4k", "parataa_serve"):
+            continue
+        key = f"{rec['arch']} x {rec['shape']} [{rec['mesh']}]"
+        if rec["status"] == "skipped":
+            print(f"phase 12 (c) {key}: skipped ({rec['reason']})")
+            continue
+        print(f"phase 12 (c) {key} (modeled, rank 0 of {rec['chips']}): "
+              f"per chip {rec['flops_per_chip']} flop "
+              f"({rec['flops_by_dtype']}), {rec['bytes_per_chip']} B, peak "
+              f"{rec['peak_bytes']} B (fits_hbm {rec['fits_hbm']}); "
+              f"collectives {rec['collective_breakdown']} B in "
+              f"{rec['collective_counts']} calls, by link "
+              f"{rec['collective_by_link']}; compute {rec['compute_s']} s "
+              f"(TF32 {rec['compute_s_tf32']}), memory {rec['memory_s']} s, "
+              f"collective {rec['collective_s']} s -> {rec['dominant']}")
+        check(rec["status"] == "ok" and rec["flops_per_chip"] > 0,
+              f"phase 12 (c): {key} {rec.get('status')} "
+              f"{rec.get('error')}")
+        recs[key] = {k: rec[k] for k in (
+            "chips", "flops_per_chip", "bytes_per_chip", "peak_bytes",
+            "fits_hbm", "collective_breakdown", "collective_by_link",
+            "compute_s", "memory_s", "collective_s", "dominant")}
+    check(len(recs) > 0, "phase 12 (c): no LM record")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"phase 12 (c) {len(recs)} cells in {time.monotonic() - t0} s")
+    return recs
+
+
 def model_cases():
     """The phase-4 calls, at the full widths of models this repo configures;
     inputs on the card from a numpy seed, at the JAX tests' magnitudes
@@ -3354,11 +3795,21 @@ def main() -> int:
             mesh[mode]["launches"][name]
     t11 = time.monotonic()
     free_card()
+    # phase 12 (c) needs no card: its CPU subprocess runs beside phase 11
+    # and phase 12 (a)-(b)
+    dryrun12 = lm_production_dryrun()
     tp = tensor_parallel_path(mesh)
     for name in ("taa_gram", "taa_apply", "taa_round"):
         mode = "fused" if name == "taa_round" else "staged"
         next(r for r in rows if r["name"] == name)["tp_launches"] = \
             tp[mode]["launches"][name]
+    t12 = time.monotonic()
+    free_card()
+    tp_lm = lm_tensor_parallel_path(dryrun12)
+    for name in ("taa_gram", "taa_apply", "taa_round"):
+        mode = "fused" if name == "taa_round" else "staged"
+        next(r for r in rows if r["name"] == name)["tp_lm_launches"] = \
+            tp_lm[mode]["launches"][name]
     print(f"phase seconds: build {t1 - t0}, taa kernels {t2 - t1}, DiT-XL "
           f"serving and TF32 {t3 - t2}, model kernels {t4 - t3}, DiT-XL "
           f"stepwise serving {t5 - t4}, --use-pallas {t5b - t5}, DiT-XL "
@@ -3366,7 +3817,7 @@ def main() -> int:
           f"{t7 - t6}, mamba2/recurrentgemma/MoE {t8 - t7}, dry-run against "
           f"the card {t9 - t8}, examples {t10 - t9}, placement on a world "
           f"of one {t11 - t10}, the tensor-parallel DiT and the production "
-          f"dry-run {time.monotonic() - t11}")
+          f"dry-run {t12 - t11}, the tensor-parallel LMs {time.monotonic() - t12}")
     # the card again, so that the end of a long log still names it
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": rows}))
@@ -3379,5 +3830,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-gloo-rank"]:
         tp_gloo_rank(int(sys.argv[2]), Path(sys.argv[3]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--tp-lm-gloo-rank"]:
+        tp_lm_gloo_rank(int(sys.argv[2]), Path(sys.argv[3]))
         sys.exit(0)
     sys.exit(main())

@@ -8,7 +8,8 @@ HLO, so the call sites count instead.  ``counts[kind]`` is the number of
 calls and ``nbytes[kind]`` the operand bytes a rank contributed (the local
 shard of an all-gather, the reduced tensor of an all-reduce, the
 broadcast tensor; a broadcast control object counts no bytes), under the
-HLO's names.  ``group_bytes[(kind, ranks)]`` splits the same bytes by the
+HLO's names (a reduce-scatter counts the whole tensor it reduces).
+``group_bytes[(kind, ranks)]`` splits the same bytes by the
 global ranks of the group they crossed, which is what prices a collective
 on the links its ranks span (``roofline.analysis.link_bytes``).
 
@@ -24,7 +25,7 @@ from typing import Dict, List, Tuple
 import torch
 import torch.distributed as dist
 
-KINDS = ("all-gather", "all-reduce", "broadcast")
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "broadcast")
 
 #: dtypes that cross the wire as same-size integers (gloo takes no bool)
 _WIRE = {torch.bool: torch.uint8}
@@ -77,6 +78,14 @@ def all_reduce_min(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """Elementwise maximum of ``x`` over ``group`` (a new tensor)."""
+    out = x.clone()
+    _count("all-reduce", out, group)
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """Elementwise sum of ``x`` over ``group`` (a new tensor)."""
     out = x.clone()
@@ -91,6 +100,28 @@ def all_reduce_sum_(x: torch.Tensor, group) -> torch.Tensor:
     _count("all-reduce", x, group)
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The sum of ``x`` over ``group``, of which this rank keeps its block
+    along ``dim`` (the group-rank-th of ``group_size`` equal blocks).
+    gloo has no reduce-scatter: there it is an all-reduce of which the
+    block is kept (the same sums), counted as the one reduce-scatter the
+    program asks for."""
+    n = group_size(group)
+    _count("reduce-scatter", x, group)
+    size = x.shape[dim] // n
+    me = dist.get_group_rank(group, dist.get_rank()) if group is not None \
+        else dist.get_rank()
+    if dist.get_backend(group) == "gloo":
+        full = x.contiguous().clone()
+        dist.all_reduce(full, op=dist.ReduceOp.SUM, group=group)
+        return full.narrow(dim, me * size, size)
+    src = x.movedim(dim, 0).contiguous()
+    out = torch.empty((size,) + src.shape[1:], dtype=x.dtype,
+                      device=x.device)
+    dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=group)
+    return out.movedim(0, dim)
 
 
 def broadcast_(x: torch.Tensor, src: int, group=None) -> torch.Tensor:

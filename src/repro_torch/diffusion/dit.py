@@ -228,15 +228,31 @@ def wrapper_apply(params, cfg: ArchConfig, latents, t, *,
     The backbone runs in its native mode (causal for attention archs): a
     causal denoiser over latent token sequences (diffusion-forcing style);
     ParaTAA is agnostic to the denoiser's internal structure.  ``remat``
-    recomputes each layer in the backward pass."""
-    from repro_torch.models.backbone import default_positions, trunk
+    recomputes each layer in the backward pass.  ``params`` may be a
+    rank's ``ShardedParams`` of :func:`wrapper_defs` on a mesh: the
+    projections' data-axis splits gathered, the backbone tensor-parallel
+    (``models.backbone``; forward only)."""
+    from repro_torch.models.backbone import (default_positions, seq_split,
+                                             trunk)
+    from repro_torch.models.shardctx import LayerTP
 
+    tp = params if isinstance(params, ShardedParams) else None
+    top = params if tp is None else tp.gather(
+        {k: tp.local[k] for k in ("in_proj", "t_mlp1", "t_mlp2",
+                                  "out_proj")})
     b, n, _ = latents.shape
-    x = latents @ params["in_proj"]
+    x = latents @ top["in_proj"]
     temb = sinusoidal_embed(t, TEMB_DIM).to(x.dtype)
-    cond = F.silu(temb @ params["t_mlp1"]) @ params["t_mlp2"]
+    cond = F.silu(temb @ top["t_mlp1"]) @ top["t_mlp2"]
     x = x + cond[:, None, :]
     pos = default_positions(cfg, b, n, x.device)
-    h, _, _ = trunk(params["backbone"], cfg, x, pos, mode="train",
-                    remat=remat)
-    return h @ params["out_proj"]
+    if tp is None:
+        h, _, _ = trunk(params["backbone"], cfg, x, pos, mode="train",
+                        remat=remat)
+        return h @ params["out_proj"]
+    # the backbone tensor-parallel on its blocks: the residual's rows
+    # split over model where the arch asks (backbone.seq_split)
+    bb = tp.sub("backbone")
+    rows = LayerTP(bb, "", {}, seq_split(cfg, bb, "train", n), n)
+    h, _, _ = trunk(bb, cfg, rows.own_rows(x), pos, mode="train")
+    return rows.rows_in(h) @ top["out_proj"]

@@ -10,10 +10,13 @@ no card needed) — the JAX package's ``repro.launch.dryrun``.  ``--mesh``:
   process is rank 0 and no collective moves data) and counted as rank
   0's program.  The ParaTAA cell runs there through the sharded engine's
   own code path (requests over the data axes, the DiT tensor-parallel over
-  ``model``); the LM cells and the DiT's train step wait for their
-  tensor-parallel forms and are written ``"status": "skipped"`` with the
-  ROADMAP item that brings them.  ``both`` runs ``single`` and ``multi``
-  side by side, each in a process of its own.
+  ``model``); every LM prefill and decode cell runs the backbone's
+  tensor-parallel forward on rank 0's blocks of the params
+  (``steps.abstract_model_state(mesh=)``), of the inputs (its data shard)
+  and of the cache (``steps.abstract_cache(mesh=)``); the train cells
+  wait for the tensor-parallel backward and are written ``"status":
+  "skipped"`` with the ROADMAP item that brings it.  ``both`` runs
+  ``single`` and ``multi`` side by side, each in a process of its own.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out build/dryrun
     PYTHONPATH=src python -m repro_torch.launch.dryrun --parataa --mesh both
@@ -58,6 +61,7 @@ The reference's ``lower_s``/``compile_s`` are null (nothing is compiled);
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -67,6 +71,7 @@ import traceback
 from pathlib import Path
 from typing import Union
 
+import numpy as np
 import torch
 
 from repro_torch import comm
@@ -86,36 +91,51 @@ MESHES = {"one": ("one-card", None), "single": ("single", "pod"),
           "multi": ("multi", "multi-pod")}
 
 
+def _add(a: dict, b: dict, n: float = 1) -> dict:
+    return {k: a.get(k, 0) + n * b.get(k, 0) for k in set(a) | set(b)}
+
+
 @dataclasses.dataclass
 class Cost:
-    """FLOPs (split by operand dtype) and bytes, added and scaled."""
+    """FLOPs (split by operand dtype), bytes, and the collectives called
+    (bytes by kind and by link tier, calls by kind), added and scaled."""
     flops_by_dtype: dict
     bytes: float
+    coll: dict = dataclasses.field(default_factory=dict)
+    links: dict = dataclasses.field(default_factory=dict)
+    calls: dict = dataclasses.field(default_factory=dict)
 
     @classmethod
     def of(cls, counter: CostCounter) -> "Cost":
-        return cls(dict(counter.flops_by_dtype), float(counter.bytes))
+        return cls(dict(counter.flops_by_dtype), float(counter.bytes),
+                   RA.collective_bytes(), RA.link_bytes(),
+                   {k: v for k, v in comm.counts.items() if v})
 
     @property
     def flops(self) -> float:
         return float(sum(self.flops_by_dtype.values()))
 
     def __add__(self, other: "Cost") -> "Cost":
-        keys = set(self.flops_by_dtype) | set(other.flops_by_dtype)
-        return Cost({k: self.flops_by_dtype.get(k, 0)
-                     + other.flops_by_dtype.get(k, 0) for k in keys},
-                    self.bytes + other.bytes)
+        return self._combine(other, 1)
 
     def __sub__(self, other: "Cost") -> "Cost":
-        return self + other * -1
+        return self._combine(other, -1)
+
+    def _combine(self, other: "Cost", n: float) -> "Cost":
+        return Cost(_add(self.flops_by_dtype, other.flops_by_dtype, n),
+                    self.bytes + n * other.bytes,
+                    _add(self.coll, other.coll, n),
+                    _add(self.links, other.links, n),
+                    _add(self.calls, other.calls, n))
 
     def __mul__(self, n: float) -> "Cost":
-        return Cost({k: v * n for k, v in self.flops_by_dtype.items()},
-                    self.bytes * n)
+        return Cost._combine(Cost({}, 0.0), self, n)
 
 
 def _counted(fn, *args, **kw) -> Cost:
-    """The cost of ``fn(*args, **kw)`` (its output dropped)."""
+    """The cost of ``fn(*args, **kw)`` (its output dropped), with the
+    collectives it called (``comm``'s counts from zero)."""
+    comm.reset()
     with CostCounter() as counter:
         fn(*args, **kw)
     return Cost.of(counter)
@@ -137,10 +157,34 @@ def _requires_grad(tree, flag: bool):
 # ---------------------------------------------------------------------------
 
 
-def _program(cfg, shape: ShapeConfig, device=META, microbatches=None):
+def _local_shape(shape: ShapeConfig, mesh) -> ShapeConfig:
+    """The cell's shape with this rank's share of the batch (its data
+    shard; the whole batch where the data axes do not divide it)."""
+    if mesh is None:
+        return shape
+    from repro_torch.models.pdefs import entry_size, resolve_axis
+
+    parts = entry_size(resolve_axis("embed", shape.global_batch, mesh), mesh)
+    return dataclasses.replace(shape,
+                               global_batch=shape.global_batch // parts)
+
+
+def _program(cfg, shape: ShapeConfig, device=META, microbatches=None,
+             mesh=None):
     """(step fn, its arguments) of the cell, as the drivers run it; a train
-    step over ``microbatches`` of its microbatches (default: all)."""
+    step over ``microbatches`` of its microbatches (default: all).  On a
+    mesh (prefill and decode): rank 0's blocks of the params, inputs and
+    cache."""
     kind = shape.kind
+    if mesh is not None:
+        params, _ = S.abstract_model_state(cfg, with_opt=False,
+                                           device=device, mesh=mesh)
+        inputs = S.input_specs(cfg, _local_shape(shape, mesh), device)
+        cache = S.abstract_cache(cfg, shape, device, mesh=mesh)
+        if kind == "prefill":
+            return S.make_prefill_step(cfg), (params, inputs["inputs"],
+                                              cache)
+        return S.make_decode_step(cfg), (params, inputs["token"], cache)
     params, opt = S.abstract_model_state(cfg, with_opt=kind == "train",
                                          device=device)
     ga = cfg.train_grad_accum
@@ -163,7 +207,8 @@ def _memory(fn, args) -> dict:
     """The program's live-storage peak on ``meta``: arguments (what is
     live before it runs) + temporaries."""
     with CostCounter() as counter:
-        arg_bytes = counter.track(args)
+        arg_bytes = counter.track(
+            [getattr(a, "local", a) for a in args])
         out = fn(*args)
         held = counter.live
         new = counter.track(out)     # outputs made outside the counted ops
@@ -193,11 +238,50 @@ def _scan_unit(cfg):
     return kinds, n_units, unit_apply, one
 
 
-def _layer_cost(cfg, shape: ShapeConfig, device=META):
+def _unit_tp(cfg, kinds, lp, defs, shape: ShapeConfig, mesh, device):
+    """On a mesh: (rank 0's blocks of a scan unit's params, its cache
+    blocks, the unit's apply on them — the layer's data-axis gather
+    included — and the residual's rows on the rank)."""
+    from repro_torch.models.shardctx import (LayerTP, ShardedCache,
+                                             ShardedParams)
+    from repro_torch.tree import flatten_with_paths, path_name
+
+    tp = ShardedParams.build(lp, defs, mesh)
+    b, s = shape.global_batch, shape.seq_len
+    mode = shape.kind
+    whole = {f"l{j}": B._layer_cache(cfg, k, b, s, S.PARAM_DTYPE, META)
+             for j, k in enumerate(kinds)} if cfg.is_hybrid else \
+        B._layer_cache(cfg, kinds[0], b, s, S.PARAM_DTYPE, META)
+    part = [(path, S._cache_spec_for(path_name(path), tuple(x.shape), mesh))
+            for path, x in flatten_with_paths(whole)]
+    cache = ShardedCache.zeros(whole, part, mesh, device)
+    s_eff = 1 if mode == "decode" else s
+    split = B.seq_split(cfg, tp, mode, s_eff)
+
+    def view(pre):
+        own = {k[len(pre):]: e for k, e in cache.specs.items()
+               if k.startswith(pre)}
+        return LayerTP(tp, pre, own, split, s_eff)
+
+    def apply(h, pos):
+        p = B._layer_blocks(tp, "", tp.local)
+        if cfg.is_hybrid:
+            return B._apply_group(cfg, kinds, p, h, pos, mode=mode,
+                                  cache=cache.local, causal=True,
+                                  tps=[view(f"l{j}/")
+                                       for j in range(len(kinds))])
+        return B._apply_layer(cfg, kinds[0], p, h, pos, mode=mode,
+                              cache=cache.local, causal=True, tp=view(""))
+    rows = s_eff // tp.model_size if split else s_eff
+    return apply, rows
+
+
+def _layer_cost(cfg, shape: ShapeConfig, device=META, mesh=None):
     """One scan unit standalone, at the (micro)batch of the cell: for train
     shapes its loss sum(out) and the grads of its params and input, the
     unit recomputed in the backward pass (the trunk's remat); for prefill
-    and decode, the unit over its own cache.  Returns (Cost, n_units)."""
+    and decode, the unit over its own cache — on a mesh, rank 0's blocks
+    of both, tensor-parallel.  Returns (Cost, n_units)."""
     from torch.utils.checkpoint import checkpoint
 
     from repro_torch.models.pdefs import leaf_dtype, map_defs
@@ -210,6 +294,15 @@ def _layer_cost(cfg, shape: ShapeConfig, device=META):
     lp = map_defs(lambda _, spec: torch.empty(
         spec.shape, dtype=leaf_dtype(spec, S.PARAM_DTYPE), device=device),
         defs)
+    if mesh is not None:
+        apply, rows = _unit_tp(cfg, kinds, lp, defs, shape, mesh, device)
+        b = _local_shape(shape, mesh).global_batch
+        s_eff = 1 if shape.kind == "decode" else shape.seq_len
+        h = torch.zeros((b, rows, cfg.d_model), dtype=S.PARAM_DTYPE,
+                        device=device)
+        pos = B.default_positions(cfg, b, s_eff, device)
+        with torch.no_grad():
+            return _counted(apply, h, pos), n_units
     b, s = shape.global_batch, shape.seq_len
     if shape.kind == "train":
         b //= cfg.train_grad_accum
@@ -280,29 +373,32 @@ def _update_cost(cfg, device=META):
     return opt_cost, _counted(accumulate)
 
 
-def cell_cost(cfg, shape: ShapeConfig, device=META):
+def cell_cost(cfg, shape: ShapeConfig, device=META, mesh=None):
     """(Cost, n_units): the cell's cost assembled from a standalone scan
-    unit (module docstring); the DiT's counted whole."""
+    unit (module docstring); the DiT's counted whole.  On a mesh: rank
+    0's (prefill and decode)."""
     if cfg.is_diffusion:
         fn, args = _program(cfg, shape, device)
         return _counted(fn, *args), 0
-    unit, n_units = _layer_cost(cfg, shape, device)
+    unit, n_units = _layer_cost(cfg, shape, device, mesh)
     _, _, _, one = _scan_unit(cfg)
     if shape.kind == "train":
         loss = _loss_cost(one, shape, device) - unit
         opt, acc = _update_cost(cfg, device)
         ga = cfg.train_grad_accum
         return opt + acc + (loss + unit * n_units) * ga, n_units
-    fn, args = _program(one, shape, device)
+    fn, args = _program(one, shape, device, mesh=mesh)
     with torch.no_grad():
         const = _counted(fn, *args) - unit
     return const + unit * n_units, n_units
 
 
-def _roofline(cost: Cost, coll: dict, by_link: dict) -> dict:
-    """The record's roofline fields; ``coll`` the collective bytes by kind
-    the cell issued (``RA.collective_bytes``), ``by_link`` the same by the
+def _roofline(cost: Cost) -> dict:
+    """The record's roofline fields, the collective terms from the
+    bytes the cell moved by kind (``RA.collective_bytes``) and by the
     link tier each crossed (``RA.link_bytes``)."""
+    coll = {k: int(v) for k, v in cost.coll.items()}
+    by_link = {k: int(v) for k, v in cost.links.items()}
     coll_bytes = float(sum(coll.values()))
     terms = RA.roofline_terms(cost.flops, cost.bytes, coll_bytes,
                               flops_by_dtype=cost.flops_by_dtype,
@@ -321,13 +417,15 @@ def _roofline(cost: Cost, coll: dict, by_link: dict) -> dict:
 
 
 def run_cell(arch_name: str, shape: Union[str, ShapeConfig], *,
-             cfg=None, mesh_label: str = "one-card",
+             cfg=None, mesh_label: str = "one-card", mesh=None,
              verbose: bool = True) -> dict:
     """One (arch, shape) cell on ``meta``.  ``shape`` is a name of
     ``configs.base.SHAPES`` or a ``ShapeConfig``; ``cfg`` overrides the
     registry's config (a reduced one in the tests).  On a production mesh
-    (``mesh_label`` "single" or "multi") the cell is skipped with the
-    ROADMAP item that brings its sharded form."""
+    (``mesh_label`` "single" or "multi", ``mesh`` its ``DeviceMesh`` in a
+    ``fake`` world) an LM prefill or decode cell is rank 0's
+    tensor-parallel program (:func:`run_mesh_cell`); a train cell is
+    skipped with the ROADMAP item that brings its sharded form."""
     cfg = cfg or get_arch(arch_name)
     shape = get_shape(shape) if isinstance(shape, str) else shape
     rec = {"arch": arch_name, "shape": shape.name, "mesh": mesh_label}
@@ -335,9 +433,11 @@ def run_cell(arch_name: str, shape: Union[str, ShapeConfig], *,
     if not ok:
         return {**rec, "status": "skipped", "reason": reason}
     if mesh_label != "one-card":
-        item = S.TRAIN_MESH_ITEM if cfg.is_diffusion else S.LM_MESH_ITEM
-        return {**rec, "status": "skipped",
-                "reason": f"not priced on a mesh yet: {item}"}
+        if shape.kind == "train" or cfg.is_diffusion or mesh is None:
+            return {**rec, "status": "skipped",
+                    "reason": f"not priced on a mesh yet: "
+                              f"{S.TRAIN_MESH_ITEM}"}
+        return run_mesh_cell(cfg, shape, mesh, rec, verbose)
     rec.update(chips=1, status="error")
     t0 = time.monotonic()
     comm.reset()
@@ -359,9 +459,50 @@ def run_cell(arch_name: str, shape: Union[str, ShapeConfig], *,
         status="ok", lower_s=None, compile_s=None,
         count_s=time.monotonic() - t0, n_units=n_units, **mem,
         fits_hbm=bool(mem["peak_bytes"] < RA.HBM_PER_CHIP),
-        **_roofline(cost, RA.collective_bytes(), RA.link_bytes()),
-        model_flops_global=mf,
+        **_roofline(cost), model_flops_global=mf,
         model_flops_ratio=mf / cost.flops if cost.flops else None)
+    if verbose:
+        _print(rec)
+    return rec
+
+
+#: how the production records price their collectives
+COLLECTIVE_MODEL = (
+    "modeled, not measured: each group's bytes at the slowest link its "
+    f"ranks cross, NVLink 4 {RA.LINK_BW / 1e9:g} GB/s each way inside a "
+    f"node of {RA.RANKS_PER_NODE} consecutive ranks (HGX H100), one 400 "
+    f"Gb/s NDR InfiniBand port a GPU ({RA.NETWORK_BW / 1e9:g} GB/s) "
+    "across nodes")
+
+
+def run_mesh_cell(cfg, shape: ShapeConfig, mesh, rec: dict,
+                  verbose: bool = True) -> dict:
+    """An LM prefill or decode cell as rank 0's tensor-parallel program on
+    ``mesh`` (a ``fake`` world): memory from the whole program on its
+    blocks, cost (collectives included) from one scan unit and the rest
+    as on one card (module docstring)."""
+    from repro_torch.launch.mesh import axis_sizes
+
+    chips = int(np.prod(list(axis_sizes(mesh).values())))
+    rec.update(chips=chips, status="error",
+               placement=" x ".join(f"{k}={v}" for k, v in
+                                    axis_sizes(mesh).items()))
+    t0 = time.monotonic()
+    fn, args = _program(cfg, shape, mesh=mesh)
+    with torch.no_grad():
+        mem = _memory(fn, args)
+    del fn, args
+    cost, n_units = cell_cost(cfg, shape, mesh=mesh)
+    mf = RA.model_flops(cfg, shape)
+    rec.update(
+        status="ok", lower_s=None, compile_s=None,
+        count_s=time.monotonic() - t0, n_units=n_units, **mem,
+        fits_hbm=bool(mem["peak_bytes"] < RA.HBM_PER_CHIP),
+        **_roofline(cost),
+        collective_counts={k: int(v) for k, v in cost.calls.items() if v},
+        model_flops_global=mf,
+        model_flops_ratio=mf / (cost.flops * chips) if cost.flops else None,
+        collective_model=COLLECTIVE_MODEL)
     if verbose:
         _print(rec)
     return rec
@@ -456,18 +597,13 @@ def run_parataa_cell(*, mesh=None, mesh_label: str = "one-card",
         status="ok", compile_s=None, count_s=time.monotonic() - t0,
         argument_bytes=arg_bytes, temp_bytes=peak - arg_bytes,
         peak_bytes=peak, fits_hbm=bool(peak < RA.HBM_PER_CHIP),
-        **_roofline(cost, RA.collective_bytes(), RA.link_bytes()),
+        **_roofline(cost),
         collective_counts={k: v for k, v in comm.counts.items() if v},
         model_flops_global=mf,
         model_flops_ratio=mf / (cost.flops * chips) if cost.flops else None,
         note="per-ITERATION cost; end-to-end = iters x this")
     if mesh is not None:
-        rec["collective_model"] = (
-            f"modeled, not measured: each group's bytes at the slowest "
-            f"link its ranks cross, NVLink 4 {RA.LINK_BW / 1e9:g} GB/s "
-            f"each way inside a node of {RA.RANKS_PER_NODE} consecutive "
-            f"ranks (HGX H100), one 400 Gb/s NDR InfiniBand port a GPU "
-            f"({RA.NETWORK_BW / 1e9:g} GB/s) across nodes")
+        rec["collective_model"] = COLLECTIVE_MODEL
     if verbose:
         _print(rec)
     return rec
@@ -501,27 +637,28 @@ def _run(args, mesh_key: str) -> int:
         (out / f"{arch}__{shape}__{label}.json").write_text(
             json.dumps(rec, indent=1, default=str))
 
-    for arch_name, shape_name in _cells(args):
-        try:
-            rec = run_cell(arch_name, shape_name, mesh_label=label)
-        except Exception as e:  # noqa: BLE001 — the cell's record says why
-            rec = _error(arch_name, shape_name, e, label)
-            failures += 1
-        write(arch_name, shape_name, rec)
-    if not (args.all or args.parataa):
-        return failures
-    try:
-        if registry_name is None:
-            rec = run_parataa_cell(mesh_label=label)
-        else:
+    with contextlib.ExitStack() as stack:
+        mesh = None
+        if registry_name is not None:
             from repro_torch.launch.mesh import fake_mesh
 
-            with fake_mesh(registry_name) as mesh:
-                rec = run_parataa_cell(mesh=mesh, mesh_label=label)
-    except Exception as e:  # noqa: BLE001
-        rec = _error("dit-xl", "parataa_serve", e, label)
-        failures += 1
-    write("dit-xl", "parataa_serve", rec)
+            mesh = stack.enter_context(fake_mesh(registry_name))
+        for arch_name, shape_name in _cells(args):
+            try:
+                rec = run_cell(arch_name, shape_name, mesh_label=label,
+                               mesh=mesh)
+            except Exception as e:  # noqa: BLE001 — the record says why
+                rec = _error(arch_name, shape_name, e, label)
+                failures += 1
+            write(arch_name, shape_name, rec)
+        if not (args.all or args.parataa):
+            return failures
+        try:
+            rec = run_parataa_cell(mesh=mesh, mesh_label=label)
+        except Exception as e:  # noqa: BLE001
+            rec = _error("dit-xl", "parataa_serve", e, label)
+            failures += 1
+        write("dit-xl", "parataa_serve", rec)
     return failures
 
 

@@ -272,6 +272,30 @@ def axes_group(mesh, axes: Tuple[str, ...]):
     return _GROUPS[key][1]
 
 
+def model_subgroup(mesh, share: int, axis: str = "model"):
+    """The process group of the ``share`` consecutive ``axis`` coordinates
+    that hold this rank (its other coordinates fixed): the ranks that
+    share one RG-LRU gate block.  Made with ``new_group`` once per (mesh,
+    share) for every block of every ``axis`` group — collective over the
+    default group, so every rank asks in the same order (each layer's
+    forward does, in layer order)."""
+    key = (id(mesh), "sub", axis, share)
+    if key not in _GROUPS:
+        names = list(mesh.mesh_dim_names)
+        grid = np.moveaxis(mesh.mesh.numpy(), names.index(axis), -1)
+        rows = grid.reshape(-1, grid.shape[-1])
+        me = dist.get_rank()
+        mine = None
+        for row in rows:
+            for lo in range(0, len(row), share):
+                ranks = sorted(int(r) for r in row[lo:lo + share])
+                group = dist.new_group(ranks)
+                if me in ranks:
+                    mine = group
+        _GROUPS[key] = (mesh, mine)
+    return _GROUPS[key][1]
+
+
 @contextlib.contextmanager
 def fake_mesh(name: str, **sizes):
     """The registry mesh ``name`` (with ``with_sizes`` overrides) over a

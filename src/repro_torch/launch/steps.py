@@ -8,10 +8,12 @@ On a mesh, the reference's shardings become PartitionSpec entries
 (``input_partition``, ``cache_partition``, ``_cache_spec_for``, by its
 rules and divisibility) and ``input_specs(mesh=)`` returns the inputs as
 ``DTensor``s with those placements on the ``DeviceMesh``.
-``abstract_model_state(cfg, mesh=)`` gives the DiT's rank-local blocks
+``abstract_model_state(cfg, mesh=)`` gives a rank's blocks of any model
 (``ShardedParams.build``, the slicing ``Placement.shard_params`` hands the
-tensor-parallel DiT); the LM backbones and the caches on a mesh wait for
-their tensor-parallel forms (``LM_MESH_ITEM``).
+tensor-parallel DiT and LM backbones) and ``abstract_cache(mesh=)`` /
+:func:`local_cache` a rank's blocks of the cache (a ``ShardedCache`` whose
+entries come from :func:`cache_partition`: the forward reads its layout
+from the same rules that size it).
 
 A train step updates the params and optimizer state in place (the
 counterpart of the reference's donated buffers) and returns its metrics as
@@ -30,7 +32,7 @@ from repro_torch.diffusion.schedules import make_schedule
 from repro_torch.models import backbone
 from repro_torch.models.pdefs import (dtensor_placements, leaf_dtype,
                                       map_defs, resolve_axis)
-from repro_torch.models.shardctx import ShardedParams
+from repro_torch.models.shardctx import ShardedCache, ShardedParams
 from repro_torch.optim import AdamWConfig, adamw_update, lr_schedule
 from repro_torch.tree import flatten_with_paths, leaves, map_tree, unflatten
 
@@ -38,9 +40,7 @@ from repro_torch.tree import flatten_with_paths, leaves, map_tree, unflatten
 PARAM_DTYPE = torch.bfloat16
 META = torch.device("meta")
 
-#: the ROADMAP items that bring the cells still missing on a mesh
-LM_MESH_ITEM = ("ROADMAP Queue 1 item 3, step 1: tensor parallelism for "
-                "the LM backbones and their cells on the production meshes")
+#: the ROADMAP item that brings the cells still missing on a mesh
 TRAIN_MESH_ITEM = ("ROADMAP Queue 1 item 3, step 2: the tensor-parallel "
                    "backward and the DiT's train_4k cell on a mesh")
 
@@ -282,12 +282,29 @@ def cache_partition(cfg: ArchConfig, shape: ShapeConfig, mesh,
 def abstract_cache(cfg: ArchConfig, shape: ShapeConfig, device=META,
                    dtype=PARAM_DTYPE, mesh=None):
     """The decode/prefill cache of the cell (``backbone.init_cache``) on
-    ``device``.  On a mesh (rank-local blocks) it raises: the LM
-    backbones are not tensor-parallel yet (``LM_MESH_ITEM``)."""
+    ``device``; on a ``DeviceMesh``, this rank's blocks of it
+    (:func:`local_cache`)."""
     if mesh is not None:
-        raise NotImplementedError(f"abstract_cache(mesh=): {LM_MESH_ITEM}")
+        return local_cache(cfg, shape.global_batch, shape.seq_len, mesh,
+                           dtype, device)
     return backbone.init_cache(cfg, shape.global_batch, shape.seq_len,
                                dtype, device)
+
+
+def local_cache(cfg: ArchConfig, batch: int, max_seq: int, mesh,
+                dtype=torch.bfloat16, device=None) -> ShardedCache:
+    """This rank's blocks of the cache of ``batch`` sequences of up to
+    ``max_seq`` tokens on ``mesh``, zeros on ``device`` (None = cuda):
+    each leaf cut as :func:`cache_partition` says (the reference's
+    ``_cache_spec_for``), with those entries, which the tensor-parallel
+    forward reads."""
+    from repro_torch.device import resolve_device
+
+    shape = ShapeConfig("cache", max_seq, batch, "decode")
+    whole = backbone.init_cache(cfg, batch, max_seq, dtype, META)
+    return ShardedCache.zeros(whole, cache_partition(cfg, shape, mesh,
+                                                     dtype),
+                              mesh, resolve_device(device))
 
 
 def abstract_model_state(cfg: ArchConfig, with_opt: bool = True,
@@ -295,14 +312,12 @@ def abstract_model_state(cfg: ArchConfig, with_opt: bool = True,
     """(params, optimizer state or None) as empty tensors on ``device``,
     each param leaf in its spec's dtype or ``dtype``; the AdamW state
     float32 (master, mu, nu) and its int32 count.  On a ``DeviceMesh``
-    (the DiT only) the params are this rank's
-    :class:`~repro_torch.models.shardctx.ShardedParams` (heads, mlp and
-    the adaLN columns over ``model``, embed rows over the data axes: what
-    a sharded ``SamplingEngine`` runs the DiT on) and the optimizer state
-    matches its blocks."""
-    if mesh is not None and not cfg.is_diffusion:
-        raise NotImplementedError(
-            f"abstract_model_state(mesh=) for {cfg.name}: {LM_MESH_ITEM}")
+    the params are this rank's
+    :class:`~repro_torch.models.shardctx.ShardedParams` (the reference's
+    specs: heads, kv_heads, mlp, expert, inner, ssm_heads, vocab and the
+    DiT's adaLN columns over ``model`` where they divide, embed rows over
+    the data axes: what the tensor-parallel forwards run on) and the
+    optimizer state matches its blocks."""
     defs = dit_mod.dit_defs(cfg) if cfg.is_diffusion else \
         backbone.build_defs(cfg)
     params = map_defs(lambda _, spec: torch.empty(

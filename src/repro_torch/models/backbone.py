@@ -20,6 +20,22 @@ period groups (e.g. rglru, rglru, attn) and keeps the remainder as a list
 each tail layer) in the backward pass (``torch.utils.checkpoint``, the
 reference's ``jax.checkpoint``).  Prefill and decode write the cache in
 place.
+
+Tensor parallel (forward only): given a rank's ``shardctx.ShardedParams``
+of ``build_defs`` and a ``shardctx.ShardedCache`` (``launch.steps.
+local_cache``), ``forward``/``prefill``/``decode_step``/``lm_loss`` (no
+grad) run the reference's layout.  Outside decode, for ``tp_strategy=
+"hidden"`` archs and ``seq_parallel`` ones, the residual between
+sublayers is the rank's rows over ``model`` (:func:`seq_split`; the
+reference's ``constrain(h, "batch", "seq", None)``); elsewhere it is
+whole over ``model``.  Each layer's leaves are gathered over the data
+axes just before it (``ShardedParams.gather``), and each sublayer reads
+its split through a ``shardctx.LayerTP``.  The embedding is
+vocab-parallel (a rank looks up its vocab rows, zeros elsewhere, summed
+over ``model``: all-reduced, or reduce-scattered into the rank's rows
+under a split) and the head column-parallel (its vocab columns
+all-gathered); where the vocab does not divide ``model`` both stay whole
+and nothing is reduced.
 """
 from __future__ import annotations
 
@@ -30,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import comm
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import attention, attention_def, \
     init_attn_cache
@@ -40,6 +57,8 @@ from repro_torch.models.moe import moe_apply, moe_def
 from repro_torch.models.pdefs import ParamSpec, stack_defs
 from repro_torch.models.rglru import init_rglru_cache, rglru_apply, \
     rglru_def
+from repro_torch.models.shardctx import LayerTP, ShardedCache, ShardedParams
+from repro_torch.tree import flatten_with_paths, leaves, path_name, unflatten
 
 # ---------------------------------------------------------------------------
 # Definitions
@@ -147,37 +166,45 @@ def _add(total, aux):
 
 
 def _apply_layer(cfg: ArchConfig, kind: str, params, h, positions, *,
-                 mode: str, cache, causal: bool):
-    """-> (h, MoE aux loss or None); the cache is written in place."""
+                 mode: str, cache, causal: bool, tp: Optional[LayerTP] = None):
+    """-> (h, MoE aux loss or None); the cache is written in place.
+    ``tp``: the layer's tensor-parallel view (``params`` its blocks,
+    ``h`` the residual's layout)."""
     if kind == "ssm":
         y, _ = mamba_apply(params["mamba"], cfg,
                            rmsnorm(params["norm"], h, cfg.norm_eps),
-                           mode=mode, cache=cache)
+                           mode=mode, cache=cache, tp=tp)
         return h + y, None
     x = rmsnorm(params["norm1"], h, cfg.norm_eps)
     if kind == "attn":
         window = cfg.window_size if cfg.attention_kind == "swa" else 0
         y, _ = attention(params["attn"], cfg, x, positions, window=window,
-                         causal=causal, cache=cache, mode=mode)
+                         causal=causal, cache=cache, mode=mode, tp=tp)
     else:  # rglru
-        y, _ = rglru_apply(params["rec"], cfg, x, mode=mode, cache=cache)
+        y, _ = rglru_apply(params["rec"], cfg, x, mode=mode, cache=cache,
+                           tp=tp)
     h = h + y
     x2 = rmsnorm(params["norm2"], h, cfg.norm_eps)
     if cfg.is_moe:
-        y2, aux = moe_apply(params["moe"], cfg, x2)
+        y2, aux = moe_apply(params["moe"], cfg, x2, tp=tp, mode=mode)
         return h + y2, aux
-    return h + mlp(params["mlp"], x2, cfg.act), None
+    if tp is None:
+        return h + mlp(params["mlp"], x2, cfg.act), None
+    return h + tp.rows_out("mlp/wo", mlp(params["mlp"], tp.rows_in(x2),
+                                         cfg.act)), None
 
 
 def _apply_group(cfg: ArchConfig, kinds, params, h, positions, *, mode: str,
-                 cache, causal: bool):
-    """A hybrid period group: its layers l0, l1, ... in order."""
+                 cache, causal: bool, tps=None):
+    """A hybrid period group: its layers l0, l1, ... in order (``tps``:
+    their tensor-parallel views)."""
     aux = None
     for j, kind in enumerate(kinds):
         h, a = _apply_layer(cfg, kind, params[f"l{j}"], h, positions,
                             mode=mode, causal=causal,
                             cache=cache[f"l{j}"] if cache is not None
-                            else None)
+                            else None,
+                            tp=tps[j] if tps is not None else None)
         aux = _add(aux, a)
     return h, aux
 
@@ -186,7 +213,11 @@ def trunk(params, cfg: ArchConfig, h, positions, *, mode: str = "train",
           cache=None, causal: bool = True, remat: Optional[bool] = None):
     """h: (B, S, d) -> (h_out, cache, aux_loss).  ``remat`` (default: train
     mode) recomputes each layer (a hybrid's period group) in the backward
-    pass; it applies only where autograd records."""
+    pass; it applies only where autograd records.  On a rank's
+    ``ShardedParams`` (and ``ShardedCache``): :func:`_trunk_tp`."""
+    if isinstance(params, ShardedParams):
+        return _trunk_tp(params, cfg, h, positions, mode=mode, cache=cache,
+                         causal=causal)
     if remat is None:
         remat = mode == "train"
     remat = remat and torch.is_grad_enabled()
@@ -223,6 +254,164 @@ def trunk(params, cfg: ArchConfig, h, positions, *, mode: str = "train",
     return rmsnorm(params["final_norm"], h, cfg.norm_eps), cache, aux
 
 
+def seq_split(cfg: ArchConfig, tp, mode: str, s: int) -> bool:
+    """Whether the residual's ``s`` rows are split over ``model`` on the
+    rank's blocks ``tp`` (the reference's ``seq`` constraint: hidden-TP
+    and ``seq_parallel`` archs outside decode, where ``model`` divides
+    the rows)."""
+    return (tp is not None and mode != "decode"
+            and (cfg.tp_strategy == "hidden" or cfg.seq_parallel)
+            and s % tp.model_size == 0)
+
+
+def tp_collectives(cfg: ArchConfig, mode: str, model: int, data: int,
+                   s: int, cap: int = 0) -> dict:
+    """Collectives of one tensor-parallel call (``mode`` train, prefill or
+    decode; ``s`` tokens; ``cap`` the attention cache's slots) whose
+    ``mlp``, ``expert``, ``inner`` and ``ssm_heads`` dims divide ``model``:
+
+    * the embedding: 1 reduction over model where the vocab divides it
+      (a reduce-scatter under a row split, else an all-reduce); the head
+      1 all-gather of the vocab columns, and under a row split 1 more of
+      the rows (the last row's for a ``last_only`` prefill);
+    * the residual's rows are split (hidden / seq_parallel, outside
+      decode, ``s`` divisible): each model-sharded sublayer all-gathers
+      the rows in and reduce-scatters its output; unsplit, it all-reduces
+      its output;
+    * attention: heads — its ``wo`` output over model (all-gather of the
+      rows first under seq_parallel); hidden — 1 all-gather of k and v
+      under a row split and no output reduction; decode on a cache split
+      over slots: 1 all-reduce of the max and 1 of the sums and contexts,
+      the q heads all-gathered first under heads (whose ``wo`` output is
+      then all-reduced); on a cache split over KV heads: under hidden
+      with model > 1, the rank's heads' output all-reduced;
+    * mamba2: 1 all-reduce of the gated norm's sum of squares, with a
+      cache 1 all-gather of the conv_B/conv_C carries (model > 1);
+      RG-LRU: 1 all-gather of the shared gate block's inputs at model >
+      8; each their ``out``/``w_o`` reduction;
+    * the MLP, or the MoE's experts and shared MLP together: 1 reduction;
+      in train mode the MoE's aux loss all-reduced over data > 1;
+    * over data > 1: one flat all-gather of the embed rows a layer (a
+      hybrid's period group, a tail layer) and one of the top leaves, a
+      dtype each (a bf16 MoE layer's float32 router moves in a second).
+
+    The formula the tests and ``chip_smoke.py`` hold the counted
+    collectives (``repro_torch.comm``) to, for float32 trees."""
+    H, KV, V = cfg.num_heads, cfg.num_kv_heads, cfg.vocab_size
+    split = mode != "decode" and (cfg.tp_strategy == "hidden"
+                                  or cfg.seq_parallel) and s % model == 0
+    heads = cfg.tp_strategy == "heads"
+    c = {"all-gather": 0, "all-reduce": 0, "reduce-scatter": 0}
+    out_kind = "reduce-scatter" if split else "all-reduce"
+    if cfg.frontend != "embed" and V % model == 0:
+        c[out_kind] += 1
+    c["all-gather"] += (V % model == 0) + split
+    for kind in cfg.layer_kinds():
+        if kind == "attn":
+            if mode != "decode":
+                c["all-gather"] += split
+                if heads and H % model == 0:
+                    c[out_kind] += 1
+            elif KV % model and cap % model == 0:       # slots split
+                c["all-gather"] += heads and H % model == 0
+                c["all-reduce"] += 2 + (heads and H % model == 0)
+            elif heads and H % model == 0:
+                c["all-reduce"] += 1
+            elif not heads and KV % model == 0 and model > 1:
+                c["all-reduce"] += 1
+        elif kind == "ssm":
+            gn = cfg.ssm_ngroups * cfg.ssm_state
+            c["all-gather"] += split + (mode != "train" and model > 1
+                                        and gn % model == 0)
+            c["all-reduce"] += 1
+            c[out_kind] += 1
+        else:
+            c["all-gather"] += split + (model > 8)
+            c[out_kind] += 1
+        if kind != "ssm":
+            c["all-gather"] += split
+            c[out_kind] += 1
+            c["all-reduce"] += cfg.is_moe and mode == "train" and data > 1
+    if data > 1:
+        if cfg.is_hybrid:
+            _, n_per, tail = hybrid_layout(cfg)
+            units = n_per + len(tail)
+        else:
+            units = cfg.num_layers
+        c["all-gather"] += units + 1
+    return c
+
+
+def _forward_only(tp: ShardedParams) -> None:
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in leaves(tp.local)):
+        from repro_torch.launch.steps import TRAIN_MESH_ITEM
+
+        raise NotImplementedError(
+            f"the tensor-parallel LM backbones are forward-only: "
+            f"{TRAIN_MESH_ITEM}")
+
+
+def _layer_blocks(tp: ShardedParams, prefix: str, tree):
+    """A layer's blocks (``tree``, leaf paths under ``prefix``) with their
+    data-axis splits all-gathered (one flat all-gather)."""
+    items = [(prefix + path_name(p), x) for p, x in flatten_with_paths(tree)]
+    full = tp.gather(dict(items))
+    return unflatten(tree, [full[k] for k, _ in items])
+
+
+def _trunk_tp(tp: ShardedParams, cfg: ArchConfig, h, positions, *,
+              mode: str, cache: Optional[ShardedCache], causal: bool):
+    """The trunk on a rank's blocks: ``h`` in the residual's layout (the
+    rank's rows under :func:`seq_split`), ``positions`` every row's;
+    returns the final-norm h in the same layout."""
+    _forward_only(tp)
+    s = positions.shape[-1]
+    split = seq_split(cfg, tp, mode, s)
+    specs = cache.specs if cache is not None else {}
+    tree = tp.local
+    local = cache.local if cache is not None else None
+
+    def view(prefix: str, cprefix: str, stacked: bool) -> LayerTP:
+        own = {k[len(cprefix):]: (e[1:] if stacked else e)
+               for k, e in specs.items() if k.startswith(cprefix)
+               and "/" not in k[len(cprefix):]}
+        return LayerTP(tp, prefix, own, split, s)
+
+    aux = None
+    if cfg.is_hybrid:
+        group_kinds, n_per, tail_kinds = hybrid_layout(cfg)
+        caches = _unstack(local["periods"], n_per) if local is not None \
+            else [None] * n_per
+        tps = [view(f"periods/l{j}/", f"periods/l{j}/", True)
+               for j in range(len(group_kinds))]
+        for gp, gc in zip(_unstack(tree["periods"], n_per), caches):
+            gp = _layer_blocks(tp, "periods/", gp)
+            h, a = _apply_group(cfg, group_kinds, gp, h, positions,
+                                mode=mode, cache=gc, causal=causal, tps=tps)
+            aux = _add(aux, a)
+        for j, kind in enumerate(tail_kinds):
+            lp = _layer_blocks(tp, f"tail/{j}/", tree["tail"][j])
+            h, a = _apply_layer(cfg, kind, lp, h, positions, mode=mode,
+                                cache=local["tail"][j] if local is not None
+                                else None, causal=causal,
+                                tp=view(f"tail/{j}/", f"tail/{j}/", False))
+            aux = _add(aux, a)
+    else:
+        L, kind = cfg.num_layers, cfg.layer_kinds()[0]
+        caches = _unstack(local, L) if local is not None else [None] * L
+        ltp = view("layers/", "", True)
+        for lp, lc in zip(_unstack(tree["layers"], L), caches):
+            h, a = _apply_layer(cfg, kind, _layer_blocks(tp, "layers/", lp),
+                                h, positions, mode=mode, cache=lc,
+                                causal=causal, tp=ltp)
+            aux = _add(aux, a)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    norm = _layer_blocks(tp, "final_norm/", tree["final_norm"])
+    return rmsnorm(norm, h, cfg.norm_eps), cache, aux
+
+
 # ---------------------------------------------------------------------------
 # Embedding / head / full passes
 # ---------------------------------------------------------------------------
@@ -243,6 +432,49 @@ def embed(params, cfg: ArchConfig, inputs):
         # for d = 2560)
         h = h * float(torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype))
     return h
+
+
+def _top(tp: ShardedParams, cfg: ArchConfig) -> dict:
+    """The embedding (and the untied head) with their data-axis splits
+    all-gathered."""
+    keys = ["embed"] if cfg.tie_embeddings else ["embed", "lm_head"]
+    return tp.gather({k: tp.local[k] for k in keys})
+
+
+def _rows(tp: ShardedParams, split: bool, s: int) -> LayerTP:
+    return LayerTP(tp, "", {}, split, s)
+
+
+def _embed_tp(tp: ShardedParams, cfg: ArchConfig, top: dict, inputs,
+              split: bool):
+    """The vocab-parallel lookup in the residual's layout (the module
+    docstring)."""
+    rows = _rows(tp, split, inputs.shape[1])
+    if inputs.is_floating_point():
+        return rows.own_rows(embed(top, cfg, inputs))
+    w = top["embed"]
+    if not tp.sharded("embed"):
+        return rows.own_rows(embed(top, cfg, inputs))
+    v = w.shape[0]
+    ids = inputs.long() - tp.model_rank * v
+    hit = (ids >= 0) & (ids < v)
+    h = torch.where(hit[..., None], F.embedding(ids.clamp(0, v - 1), w),
+                    torch.zeros((), dtype=w.dtype, device=w.device))
+    h = comm.reduce_scatter(h, tp.model_group, 1) if split else \
+        comm.all_reduce_sum_(h, tp.model_group)
+    if cfg.is_hybrid:
+        h = h * float(torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype))
+    return h
+
+
+def _unembed_tp(tp: ShardedParams, cfg: ArchConfig, top: dict, h):
+    """Column-parallel logits of whole-row ``h``, the vocab columns
+    all-gathered over ``model``."""
+    logits = tp.model_cat("embed" if cfg.tie_embeddings else "lm_head",
+                          h @ head_weight(top, cfg), -1)
+    if cfg.logit_softcap:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    return logits
 
 
 def head_weight(params, cfg: ArchConfig):
@@ -267,10 +499,19 @@ def default_positions(cfg: ArchConfig, batch: int, seq: int, device,
 
 
 def forward(params, cfg: ArchConfig, inputs, positions=None, *, remat=None):
-    """Train-shape forward: inputs -> (logits (B, S, V), aux)."""
+    """Train-shape forward: inputs -> (logits (B, S, V), aux).  On a
+    rank's ``ShardedParams``: its data shard's logits (forward only)."""
     b, s = inputs.shape[:2]
     if positions is None:
         positions = default_positions(cfg, b, s, inputs.device)
+    if isinstance(params, ShardedParams):
+        _forward_only(params)
+        split = seq_split(cfg, params, "train", s)
+        top = _top(params, cfg)
+        h = _embed_tp(params, cfg, top, inputs, split)
+        h, _, aux = trunk(params, cfg, h, positions, mode="train")
+        return _unembed_tp(params, cfg, top,
+                           _rows(params, split, s).rows_in(h)), aux
     h = embed(params, cfg, inputs)
     h, _, aux = trunk(params, cfg, h, positions, mode="train", remat=remat)
     return unembed(params, cfg, h), aux
@@ -283,6 +524,21 @@ def prefill(params, cfg: ArchConfig, inputs, cache, positions=None, *,
     b, s = inputs.shape[:2]
     if positions is None:
         positions = default_positions(cfg, b, s, inputs.device)
+    if isinstance(params, ShardedParams):
+        _forward_only(params)
+        split = seq_split(cfg, params, "prefill", s)
+        top = _top(params, cfg)
+        h = _embed_tp(params, cfg, top, inputs, split)
+        h, cache, _ = trunk(params, cfg, h, positions, mode="prefill",
+                            cache=cache)
+        if last_only and split:       # the last row is the last rank's
+            h = comm.all_gather_cat(h[:, -1:], params.model_group,
+                                    1)[:, -1:]
+        elif last_only:
+            h = h[:, -1:]
+        else:
+            h = _rows(params, split, s).rows_in(h)
+        return _unembed_tp(params, cfg, top, h), cache
     h = embed(params, cfg, inputs)
     h, cache, _ = trunk(params, cfg, h, positions, mode="prefill",
                         cache=cache, remat=False)
@@ -294,6 +550,8 @@ def prefill(params, cfg: ArchConfig, inputs, cache, positions=None, *,
 def cache_index(cfg: ArchConfig, cache):
     """The tokens written so far: the first layer's device int32 index
     (the same in every layer; a hybrid's from its first period group)."""
+    if isinstance(cache, ShardedCache):
+        cache = cache.local
     return (cache["periods"]["l0"] if cfg.is_hybrid else cache)["index"][0]
 
 
@@ -306,6 +564,13 @@ def decode_step(params, cfg: ArchConfig, token, cache):
     # its own index in place
     pos = cache_index(cfg, cache).clone().view(1, 1).expand(b, 1)
     positions = pos[None].expand(3, b, 1) if cfg.m_rope else pos
+    if isinstance(params, ShardedParams):
+        _forward_only(params)
+        top = _top(params, cfg)
+        h = _embed_tp(params, cfg, top, token, False)
+        h, cache, _ = trunk(params, cfg, h, positions, mode="decode",
+                            cache=cache)
+        return _unembed_tp(params, cfg, top, h), cache
     h = embed(params, cfg, token)
     h, cache, _ = trunk(params, cfg, h, positions, mode="decode",
                         cache=cache, remat=False)
@@ -348,8 +613,53 @@ def _chunked_xent(h, w, labels, softcap: float):
     return total / (b * s)
 
 
+def _lm_loss_tp(tp: ShardedParams, cfg: ArchConfig, batch):
+    """The loss on a rank's blocks and data shard (no grad): vocab-parallel
+    cross entropy — the logits' max all-reduced over ``model``, then the
+    sum of exponentials and the gold logit in one all-reduce — averaged
+    over the data axes."""
+    inputs, labels = batch["inputs"], batch["labels"]
+    b, s = inputs.shape[:2]
+    split = seq_split(cfg, tp, "train", s)
+    top = _top(tp, cfg)
+    h = _embed_tp(tp, cfg, top, inputs, split)
+    h, _, aux = trunk(tp, cfg, h, default_positions(cfg, b, s,
+                                                    inputs.device),
+                      mode="train")
+    logits = (_rows(tp, split, s).rows_in(h)
+              @ head_weight(top, cfg)).float()
+    if cfg.logit_softcap:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    v = logits.shape[-1]
+    ids = labels.long()
+    if tp.sharded("embed" if cfg.tie_embeddings else "lm_head"):
+        ids = ids - tp.model_rank * v
+        top_ = comm.all_reduce_max(logits.amax(dim=-1), tp.model_group)
+        hit = (ids >= 0) & (ids < v)
+        gold = torch.where(hit, logits.gather(
+            -1, ids.clamp(0, v - 1)[..., None])[..., 0], 0.0)
+        sums = comm.all_reduce_sum_(torch.stack([
+            torch.exp(logits - top_[..., None]).sum(dim=-1), gold]),
+            tp.model_group)
+        nll = (torch.log(sums[0]) + top_ - sums[1]).sum() / (b * s)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        nll = (logz - logits.gather(-1, ids[..., None])[..., 0]).sum() \
+            / (b * s)
+    group = tp.data_group()
+    if group is not None and comm.group_size(group) > 1:
+        nll = comm.all_reduce_sum(nll, group) / comm.group_size(group)
+    if cfg.is_moe:
+        nll = nll + 0.01 * aux / cfg.num_layers
+    return nll
+
+
 def lm_loss(params, cfg: ArchConfig, batch):
-    """batch: {"inputs": (B,S) ids or (B,S,d) embeds, "labels": (B,S)}."""
+    """batch: {"inputs": (B,S) ids or (B,S,d) embeds, "labels": (B,S)}.
+    On a rank's ``ShardedParams`` (no grad): :func:`_lm_loss_tp`."""
+    if isinstance(params, ShardedParams):
+        _forward_only(params)
+        return _lm_loss_tp(params, cfg, batch)
     inputs = batch["inputs"]
     b, s = inputs.shape[:2]
     h = embed(params, cfg, inputs)

@@ -16,11 +16,20 @@ def rmsnorm_def(d: int):
     return {"scale": ParamSpec((d,), "ones", axes=("norm",))}
 
 
-def rmsnorm(params, x, eps: float = 1e-6):
-    """RMSNorm over the last axis, in float32."""
+def rmsnorm(params, x, eps: float = 1e-6, group=None, width: int = 0):
+    """RMSNorm over the last axis, in float32.  With ``group``, ``x`` holds
+    this rank's block of a last axis of ``width`` split over the group
+    (and ``params["scale"]`` the matching block): the sum of squares is
+    all-reduced over it in float32."""
     dt = x.dtype
     x = x.float()
-    var = x.square().mean(dim=-1, keepdim=True)
+    if group is None:
+        var = x.square().mean(dim=-1, keepdim=True)
+    else:
+        from repro_torch import comm
+
+        var = comm.all_reduce_sum_(x.square().sum(dim=-1, keepdim=True),
+                                   group) / width
     y = x * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(dt)
 

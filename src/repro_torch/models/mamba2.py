@@ -12,6 +12,17 @@ is the O(1) state update.  The SSD math is float32, as the reference's.
 Prefill and decode write the cache (state, conv carries, device int32
 ``index``) in place and return it, as the port's attention cache does: a
 decode step reads nothing back to the host.
+
+Tensor parallel (``tp``, a ``shardctx.LayerTP``; forward only): a rank
+runs its ``inner`` channels and SSD heads (``in_x``/``in_z``/``in_dt``
+columns, ``conv_x``, ``A_log``/``dt_bias``/``D``) on every row (the
+residual's rows all-gathered in under a split), ``in_B``/``in_C`` and
+their convolutions whole, as their specs are; the gated norm over the
+split channels all-reduces its sum of squares, and ``out`` is
+row-parallel.  The cache's ``conv_B``/``conv_C`` carries are split over
+``model`` by the reference's ``_cache_spec_for`` although every rank
+needs them whole: each call all-gathers the rank's blocks (one
+all-gather of both) and writes its block of the new carry back.
 """
 from __future__ import annotations
 
@@ -20,6 +31,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import comm
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import rmsnorm, rmsnorm_def
 from repro_torch.models.pdefs import ParamSpec
@@ -153,13 +165,39 @@ def _ssd_decode(x, dt, A, B, C, state):
     return y, new_state
 
 
+def _bc_carries(cache: dict, tp):
+    """(conv_B, conv_C) carries whole: the rank's blocks all-gathered over
+    ``model`` in one call where the cache splits them."""
+    cb, cc = cache["conv_B"], cache["conv_C"]
+    parts = tp.cache_split("conv_B", 2)[0]
+    if parts == 1:
+        return cb, cc
+    both = comm.all_gather_cat(torch.stack([cb, cc]), tp.group, -1)
+    return both[0], both[1]
+
+
+def _bc_block(x, cache: dict, name: str, tp):
+    """This rank's block of a whole ``conv_B``/``conv_C`` carry."""
+    parts, index = tp.cache_split(name, 2)
+    n = x.shape[-1] // parts
+    return x.narrow(-1, index * n, n)
+
+
 def mamba_apply(params, cfg: ArchConfig, x, *, mode: str = "train",
-                cache: Optional[dict] = None):
+                cache: Optional[dict] = None, tp=None):
     """x: (B, S, d) -> (y, cache).  Modes: train | prefill | decode;
-    prefill and decode write ``cache`` in place and return it."""
+    prefill and decode write ``cache`` in place and return it.  ``tp``:
+    the layer's ``shardctx.LayerTP`` (the module docstring)."""
+    if tp is not None:
+        x = tp.rows_in(x)
     b, s, _ = x.shape
     h, p = cfg.ssm_nheads, cfg.ssm_head_dim
     g, n = cfg.ssm_ngroups, cfg.ssm_state
+    if tp is not None and tp.sharded("mamba/in_x"):
+        h = params["in_dt"].shape[-1]
+        if h * p != params["in_x"].shape[-1] or g != 1:
+            raise ValueError(f"{cfg.name}: SSD heads and inner channels "
+                             f"must split together over one group")
 
     z = x @ params["in_z"]
     u = x @ params["in_x"]
@@ -168,9 +206,12 @@ def mamba_apply(params, cfg: ArchConfig, x, *, mode: str = "train",
     dt_raw = x @ params["in_dt"]
 
     carry = (lambda k: cache[k]) if cache is not None else (lambda k: None)
+    cB, cC = carry("conv_B"), carry("conv_C")
+    if tp is not None and cache is not None:
+        cB, cC = _bc_carries(cache, tp)
     u, ncx = _causal_conv(u, params["conv_x"], carry("conv_x"))
-    Bx, ncB = _causal_conv(Bx, params["conv_B"], carry("conv_B"))
-    Cx, ncC = _causal_conv(Cx, params["conv_C"], carry("conv_C"))
+    Bx, ncB = _causal_conv(Bx, params["conv_B"], cB)
+    Cx, ncC = _causal_conv(Cx, params["conv_C"], cC)
     u, Bx, Cx = F.silu(u), F.silu(Bx), F.silu(Cx)
 
     dt = F.softplus(dt_raw.float() + params["dt_bias"])
@@ -203,6 +244,9 @@ def mamba_apply(params, cfg: ArchConfig, x, *, mode: str = "train",
             cache["state"].copy_(final_state)
             cache["index"].fill_(s)
     if cache is not None and mode != "train":
+        if tp is not None:
+            ncB, ncC = (_bc_block(c, cache, k, tp)
+                        for c, k in ((ncB, "conv_B"), (ncC, "conv_C")))
         cache["conv_x"].copy_(ncx)
         cache["conv_B"].copy_(ncB)
         cache["conv_C"].copy_(ncC)
@@ -211,5 +255,15 @@ def mamba_apply(params, cfg: ArchConfig, x, *, mode: str = "train",
 
     y = y + ur.float() * params["D"][None, None, :, None]
     y = y.reshape(b, s, h * p).to(x.dtype)
-    y = rmsnorm(params["norm"], y * F.silu(z), cfg.norm_eps)
-    return y @ params["out"], cache
+    if tp is None or not tp.sharded("mamba/in_x"):
+        y = rmsnorm(params["norm"], y * F.silu(z), cfg.norm_eps)
+        out = y @ params["out"]
+        return (out if tp is None else tp.rows_out("mamba/out", out)), cache
+    # the gated norm over channels split over model: the rank's block of
+    # its (replicated) scale, the sum of squares all-reduced
+    width = params["norm"]["scale"].shape[0]
+    c = y.shape[-1]
+    scale = params["norm"]["scale"].narrow(0, tp.rank * c, c)
+    y = rmsnorm({"scale": scale}, y * F.silu(z), cfg.norm_eps,
+                group=tp.group, width=width)
+    return tp.rows_out("mamba/out", y @ params["out"]), cache

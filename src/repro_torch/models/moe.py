@@ -23,6 +23,14 @@ shard's tokens and routes them to the ``ep / model`` experts it owns,
 dropping past a per-rank capacity ``c_loc``; one all-reduce over the
 ``model`` group (the reference's ``psum``) sums the partial outputs, and
 the aux loss is averaged over the data axes.
+
+Tensor parallel (``tp``, a ``shardctx.LayerTP`` over a rank's blocks;
+forward only): the experts are the rank's block of ``we_*`` (``expert``
+over ``model``, the reference's shard_map in_specs), routed as above; the
+shared-expert MLP is column/row parallel over ``mlp``; the router stays
+whole.  The experts' partials and the shared MLP's are added first and
+summed over ``model`` in the layer's one all-reduce (reduce-scatter over
+the rows under a sequence split).
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import comm
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import act_fn, mlp, mlp_def
 from repro_torch.models.pdefs import ParamSpec
@@ -89,12 +98,18 @@ def router_probs(params, cfg: ArchConfig, x):
     return weights, ids, aux
 
 
-def moe_apply(params, cfg: ArchConfig, x, capacity: Optional[int] = None):
+def moe_apply(params, cfg: ArchConfig, x, capacity: Optional[int] = None,
+              tp=None, mode: str = "train"):
     """x: (B, S, d) -> (y, aux loss).  Expert-parallel
     (:func:`_moe_shard_map`) under an ambient mesh whose ``model`` axis has
     more than one rank and divides the padded expert count (on a mesh,
-    ``x`` is this rank's data shard of the tokens); else the local path."""
+    ``x`` is this rank's data shard of the tokens); else the local path.
+    ``tp``: the layer's ``shardctx.LayerTP`` (the module docstring); the
+    aux loss is averaged over the data axes in ``train`` mode only."""
     from repro_torch.models.shardctx import current_mesh
+
+    if tp is not None:
+        return _moe_tp(params, cfg, x, tp, mode)
 
     mesh = current_mesh()
     if mesh is not None:
@@ -175,6 +190,34 @@ def _moe_shard_map(params, cfg: ArchConfig, x, mesh, dp_axes, msize: int):
     if cfg.num_shared_experts:
         out = out + mlp(params["shared"], xt, cfg.act).float()
     return out.to(x.dtype).reshape(b, s, d), aux
+
+
+def _moe_tp(params, cfg: ArchConfig, x, tp, mode: str):
+    """The MoE layer on a rank's blocks (the module docstring)."""
+    xt_rows = tp.rows_in(x)
+    b, s, d = xt_rows.shape
+    t = b * s
+    xt = xt_rows.reshape(t, d)
+    weights, ids, aux = router_probs(params, cfg, xt)
+    group = tp.params.data_group()
+    if mode == "train" and group is not None \
+            and comm.group_size(group) > 1:
+        aux = comm.all_reduce_sum(aux, group) / comm.group_size(group)
+    e_loc = params["we_gate"].shape[0]
+    ep = padded_experts(cfg)
+    lo = tp.rank * e_loc if tp.sharded("moe/we_gate") else 0
+    out = _dispatch(xt, ids, weights, params["we_gate"], params["we_up"],
+                    params["we_down"], act_fn(cfg.act), e_loc,
+                    moe_capacity(cfg, t, ep), lo)
+    shared = cfg.num_shared_experts
+    if shared and tp.sharded("moe/shared/wo") == tp.sharded("moe/we_gate"):
+        out = out + mlp(params["shared"], xt, cfg.act).float()
+        shared = 0
+    out = tp.rows_out("moe/we_gate", out.view(b, s, d))
+    if shared:
+        out = out + tp.rows_out("moe/shared/wo", mlp(
+            params["shared"], xt, cfg.act).view(b, s, d)).float()
+    return out.to(x.dtype), aux
 
 
 def _moe_local(params, cfg: ArchConfig, x, capacity: Optional[int] = None):

@@ -37,6 +37,11 @@ class ParamSpec(NamedTuple):
     #: logical axis names, one a dim (``LOGICAL_RULES`` maps them onto a
     #: mesh); () = every dim replicated
     axes: Tuple[Optional[str], ...] = ()
+    #: how a rank's block is cut (:func:`local_block`): "slice", the
+    #: spec's contiguous slice of every sharded dim; "block_diag", for a
+    #: (nb, bs, bs) block-diagonal weight whose last dim the spec splits
+    #: (the RG-LRU gates), the columns of the rank's contiguous channels
+    layout: str = "slice"
 
 
 def map_defs(fn: Callable, defs, path: Tuple = ()):
@@ -144,12 +149,41 @@ def entry_index(entry, mesh) -> int:
     return index
 
 
-def local_block(x: torch.Tensor, entries: Tuple, mesh) -> torch.Tensor:
+def gate_blocks(nb: int, bs: int, parts: int, index: int
+                ) -> Tuple[int, int, int, int]:
+    """(first block, blocks, first column, columns) of a (nb, bs, bs)
+    block-diagonal weight that the channel block ``index`` of ``parts``
+    contiguous channel blocks of nb·bs reads: whole blocks where ``parts``
+    divides ``nb``, else the columns of one block that ``parts / nb`` ranks
+    share (``parts`` a multiple of ``nb`` dividing nb·bs).  Its size,
+    nb·bs·bs / parts, is the spec's block (which splits every block's
+    columns ``parts`` ways)."""
+    if nb % parts == 0:
+        k = nb // parts
+        return index * k, k, 0, bs
+    if parts % nb == 0 and bs % (parts // nb) == 0:
+        share = parts // nb
+        cols = bs // share
+        return index // share, 1, (index % share) * cols, cols
+    raise ValueError(f"{parts} channel blocks do not tile {nb} gate blocks "
+                     f"of {bs}")
+
+
+def local_block(x: torch.Tensor, entries: Tuple, mesh,
+                layout: str = "slice") -> torch.Tensor:
     """This rank's block of ``x`` under PartitionSpec ``entries``: along
-    each sharded dim, the contiguous slice at its :func:`entry_index`.  A
-    copy when it is smaller than ``x`` (so the whole can be freed), ``x``
-    itself when every entry is replicated."""
+    each sharded dim, the contiguous slice at its :func:`entry_index`; for
+    ``layout`` "block_diag" the last dim's entry instead selects the
+    columns of the rank's channels (:func:`gate_blocks`).  A copy when it
+    is smaller than ``x`` (so the whole can be freed), ``x`` itself when
+    every entry is replicated."""
     out = x
+    if layout == "block_diag" and entry_axes(entries[-1]):
+        nb, bs = x.shape[-3], x.shape[-1]
+        b0, nblk, c0, cols = gate_blocks(nb, bs, entry_size(entries[-1], mesh),
+                                         entry_index(entries[-1], mesh))
+        out = out.narrow(-3, b0, nblk).narrow(-1, c0, cols)
+        entries = entries[:-1] + (None,)
     for dim, entry in enumerate(entries):
         if entry_axes(entry):
             size = out.shape[dim] // entry_size(entry, mesh)

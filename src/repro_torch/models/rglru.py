@@ -10,6 +10,18 @@ here it is a Hillis-Steele scan of whole-tensor ops, ceil(log2 S) passes
 (another association order: float32 results agree within rounding, not
 bit for bit).  Prefill and decode write the cache in place, as
 ``models.mamba2`` does.
+
+Tensor parallel (``tp``, a ``shardctx.LayerTP``; forward only): a rank
+owns a contiguous block of the ``inner`` channels — its ``w_y``/``w_x``
+columns, ``conv``, ``b_*``, ``lam``, its cache's ``state`` and ``conv``
+blocks, its ``w_o`` rows (row-parallel) — on every row (the residual's
+rows all-gathered in under a split).  The block-diagonal gates ``w_a``/
+``w_i`` (nb, bs, bs), whose spec splits every block's columns, are held
+as the gate columns of the rank's channels, the same bytes
+(``pdefs.gate_blocks``): where ``model`` divides nb the rank's channels
+are whole blocks and need nothing from another rank; where nb divides
+``model`` the m / nb ranks that share a block all-gather their conv
+outputs, the block's inputs, over their subgroup.
 """
 from __future__ import annotations
 
@@ -18,6 +30,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import comm
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import act_fn
 from repro_torch.models.mamba2 import _causal_conv
@@ -37,9 +50,9 @@ def rglru_def(cfg: ArchConfig):
         "w_x": ParamSpec((d, d), "lecun", d, axes=("embed", "inner")),
         "conv": ParamSpec((w, d), "lecun", w, axes=("conv", "inner")),
         "w_a": ParamSpec((nb, bs, bs), "lecun", bs,
-                         axes=(None, None, "inner")),
+                         axes=(None, None, "inner"), layout="block_diag"),
         "w_i": ParamSpec((nb, bs, bs), "lecun", bs,
-                         axes=(None, None, "inner")),
+                         axes=(None, None, "inner"), layout="block_diag"),
         "b_a": ParamSpec((d,), "zeros", axes=("inner",)),
         "b_i": ParamSpec((d,), "zeros", axes=("inner",)),
         "lam": ParamSpec((d,), "normal", scale=0.5, dtype=torch.float32,
@@ -92,15 +105,54 @@ def rglru_scan(a, b, h0=None):
     return b
 
 
+def _gate_inputs(u, tp):
+    """The conv output a rank's gate columns read: ``u`` itself where its
+    channels are whole gate blocks, else the shared block's channels
+    all-gathered over the ranks that share it."""
+    parts = tp.size
+    if NUM_GATE_BLOCKS % parts == 0:
+        return u
+    from repro_torch.launch.mesh import model_subgroup
+
+    share = parts // NUM_GATE_BLOCKS
+    return comm.all_gather_cat(u, model_subgroup(tp.params.mesh, share), -1)
+
+
+def _rglru_gates_tp(params, u, tp):
+    """The gates of a rank's channels from its (nb_loc, bs, cols) gate
+    blocks (``pdefs.gate_blocks``); u: (B, S, c) its conv output."""
+    nb, bs, cols = params["w_a"].shape
+    xin = _gate_inputs(u, tp)
+    xs = xin.reshape(*xin.shape[:-1], nb, bs)
+
+    def gate(w, b):
+        y = torch.einsum("...nk,nkj->...nj", xs, w)
+        return torch.sigmoid((y.reshape(u.shape) + b).float())
+
+    r, i = gate(params["w_a"], params["b_a"]), gate(params["w_i"],
+                                                    params["b_i"])
+    log_a = -RGLRU_C * F.softplus(params["lam"]) * r
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
+        * i * u.float()
+    return a, b
+
+
 def rglru_apply(params, cfg: ArchConfig, x, *, mode: str = "train",
-                cache: Optional[dict] = None):
+                cache: Optional[dict] = None, tp=None):
     """Griffin recurrent block.  x: (B, S, d) -> (y, cache).  Prefill and
-    decode write ``cache`` in place and return it."""
+    decode write ``cache`` in place and return it.  ``tp``: the layer's
+    ``shardctx.LayerTP`` (the module docstring)."""
+    if tp is not None:
+        x = tp.rows_in(x)
     y_branch = act_fn("gelu")(x @ params["w_y"])
     u = x @ params["w_x"]
     u, new_conv = _causal_conv(u, params["conv"],
                                cache["conv"] if cache is not None else None)
-    a, b = _rglru_gates(params, u)
+    if tp is not None and tp.sharded("rec/w_a"):
+        a, b = _rglru_gates_tp(params, u, tp)
+    else:
+        a, b = _rglru_gates(params, u)
 
     if mode == "decode":
         if x.shape[1] != 1 or cache is None:
@@ -118,4 +170,5 @@ def rglru_apply(params, cfg: ArchConfig, x, *, mode: str = "train",
         cache["conv"].copy_(new_conv)
     else:
         cache = None
-    return (y_branch * h.to(x.dtype)) @ params["w_o"], cache
+    out = (y_branch * h.to(x.dtype)) @ params["w_o"]
+    return (out if tp is None else tp.rows_out("rec/w_o", out)), cache

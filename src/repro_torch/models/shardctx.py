@@ -32,7 +32,16 @@ and a collective is an explicit call.  What carries over:
     the block, in one flat all-gather (``gather``: exact; nothing moves
     over data axes of one rank), all-gathers the adaLN columns
     (``model_cat``) and sums the row-parallel partials (``model_sum``)
-    over ``model``.  Given a plain tree it runs every head on every rank.
+    over ``model``.  Given a plain tree it runs every head on every rank;
+  * the LM backbones' tensor parallelism (``models.backbone`` given a
+    ``ShardedParams`` of ``build_defs``, and a :class:`ShardedCache`): a
+    rank holds what the reference's specs give it, and each layer reads
+    its layout through a :class:`LayerTP` — which leaves are split over
+    ``model``, the residual's rows over ``model`` (Megatron sequence
+    parallelism: all-gathered into a sublayer, its row-parallel partials
+    reduce-scattered out) or whole (partials all-reduced), and the split
+    of each of its cache leaves (``launch.steps.cache_partition``, the
+    reference's ``_cache_spec_for``).
 """
 from __future__ import annotations
 
@@ -221,7 +230,8 @@ class ShardedParams:
             entries = pdefs.resolve_spec(spec, mesh)
             specs[path_name(path)] = entries
             blocks.append(pdefs.local_block(
-                x if place is None else place(x), entries, mesh))
+                x if place is None else place(x), entries, mesh,
+                spec.layout))
         groups = {}
         for entries in specs.values():
             for entry in entries:
@@ -233,6 +243,24 @@ class ShardedParams:
 
     def __getitem__(self, key):
         return self.local[key]
+
+    def sub(self, key: str) -> "ShardedParams":
+        """The carrier of the subtree at ``key`` (its paths without the
+        ``key/`` prefix), on the same mesh and groups."""
+        pre = f"{key}/"
+        return dataclasses.replace(
+            self, local=self.local[key],
+            specs={p[len(pre):]: e for p, e in self.specs.items()
+                   if p.startswith(pre)})
+
+    @property
+    def model_size(self) -> int:
+        return int(_sizes(self.mesh).get(self.model_axis, 1))
+
+    @property
+    def model_rank(self) -> int:
+        return self.mesh.get_local_rank(self.model_axis) \
+            if self.model_axis in self.mesh.mesh_dim_names else 0
 
     def _entries(self, path: str, ndim: int) -> Tuple:
         """The spec entries of ``path``'s last ``ndim`` dims (a stacked
@@ -252,17 +280,17 @@ class ShardedParams:
         it) with the dim each splits over axes other than model (its
         ``embed`` dim, the only one the rules put there) all-gathered
         back, in coordinate order (ZeRO-3: exact data movement).  The
-        blocks split over the same axes move in one flat all-gather; axes
-        of one rank move nothing."""
-        todo: Dict[Tuple[str, ...], list] = {}
+        blocks of one dtype split over the same axes move in one flat
+        all-gather; axes of one rank move nothing."""
+        todo: Dict[Tuple, list] = {}
         for path, x in blocks.items():
             for dim, entry in enumerate(self._entries(path, x.dim())):
                 axes = entry_axes(entry)
                 if axes and self.model_axis not in axes \
                         and comm.group_size(self.groups[axes]) > 1:
-                    todo.setdefault(axes, []).append((path, dim))
+                    todo.setdefault((axes, x.dtype), []).append((path, dim))
         out = dict(blocks)
-        for axes, items in todo.items():
+        for (axes, _), items in todo.items():
             group = self.groups[axes]
             n = comm.group_size(group)
             flat = comm.all_gather_cat(torch.cat(
@@ -278,7 +306,24 @@ class ShardedParams:
 
     @property
     def model_group(self):
+        if (self.model_axis,) not in self.groups \
+                and self.model_axis in self.mesh.mesh_dim_names:
+            self.groups[(self.model_axis,)] = self.mesh.get_group(
+                self.model_axis)
         return self.groups.get((self.model_axis,))
+
+    def data_group(self):
+        """The process group over the mesh's data axes (``pod``, ``data``)
+        that holds this rank, or None without them."""
+        from repro_torch.launch.mesh import axes_group
+
+        axes = tuple(a for a in ("pod", "data")
+                     if a in self.mesh.mesh_dim_names)
+        if not axes:
+            return None
+        if axes not in self.groups:
+            self.groups[axes] = axes_group(self.mesh, axes)
+        return self.groups[axes]
 
     def model_cat(self, path: str, x: torch.Tensor,
                   dim: int = -1) -> torch.Tensor:
@@ -295,3 +340,133 @@ class ShardedParams:
         if not self.sharded(path):
             return x
         return comm.all_reduce_sum_(x, self.model_group)
+
+
+@dataclasses.dataclass(eq=False)
+class ShardedCache:
+    """A rank's blocks of a decode cache on a mesh: ``local`` the tree of
+    blocks (each leaf's contiguous slice of the dims its PartitionSpec
+    entries split), ``specs`` leaf path -> those entries (from
+    ``launch.steps.cache_partition``, the reference's ``_cache_spec_for``:
+    the batch over the data axes, KV heads over ``model`` where they
+    divide, else the cache's slots — the context-parallel fallback —
+    mamba2's heads and channels and the RG-LRU's channels over
+    ``model``)."""
+    local: object
+    specs: Dict[str, Tuple]
+    mesh: object
+
+    def __getitem__(self, key):
+        return self.local[key]
+
+    @classmethod
+    def zeros(cls, whole, partition, mesh, device) -> "ShardedCache":
+        """Zeros on ``device`` in the blocks that ``partition`` ((path,
+        entries) of every leaf of ``whole``, a cache of global shapes,
+        e.g. on ``meta``) gives this rank."""
+        from repro_torch.models.pdefs import entry_size
+        from repro_torch.tree import flatten_with_paths, path_name, unflatten
+
+        specs, blocks = {}, []
+        for (path, x), (ppath, entries) in zip(flatten_with_paths(whole),
+                                               partition):
+            assert tuple(path) == tuple(ppath), (path, ppath)
+            shape = [n // entry_size(e, mesh) for n, e in
+                     zip(x.shape, entries)]
+            specs[path_name(path)] = tuple(entries)
+            blocks.append(torch.zeros(shape, dtype=x.dtype, device=device))
+        return cls(unflatten(whole, blocks), specs, mesh)
+
+    def gather(self):
+        """The whole cache on every rank: each split dim of each block
+        all-gathered over its axes (exact; for checks and tests)."""
+        from repro_torch.launch.mesh import axes_group
+        from repro_torch.tree import flatten_with_paths, path_name, unflatten
+
+        out = []
+        for path, x in flatten_with_paths(self.local):
+            for dim, entry in enumerate(self.specs[path_name(path)]):
+                axes = entry_axes(entry)
+                if axes:
+                    x = comm.all_gather_cat(x, axes_group(self.mesh, axes),
+                                            dim)
+            out.append(x)
+        return unflatten(self.local, out)
+
+
+@dataclasses.dataclass(eq=False)
+class LayerTP:
+    """One layer's tensor-parallel view: its leaves' paths in ``params``
+    (``prefix`` + a leaf's name in the layer), the PartitionSpec entries of
+    its cache leaves (the layer's own dims), and whether the residual's
+    rows are split over ``model`` (``seq_split``: ``seq_len`` rows in all,
+    this rank's contiguous block of them).  A sublayer whose leaves are
+    split over ``model`` takes the rows in through :meth:`rows_in` and
+    gives its partials back through :meth:`rows_out`."""
+    params: ShardedParams
+    prefix: str = ""
+    cache: Dict[str, Tuple] = dataclasses.field(default_factory=dict)
+    seq_split: bool = False
+    seq_len: int = 0
+
+    def sharded(self, name: str) -> bool:
+        return self.params.sharded(self.prefix + name)
+
+    @property
+    def size(self) -> int:
+        return self.params.model_size
+
+    @property
+    def rank(self) -> int:
+        return self.params.model_rank
+
+    @property
+    def group(self):
+        return self.params.model_group
+
+    @property
+    def row0(self) -> int:
+        """The first global row this rank holds (0 without a split)."""
+        return self.rank * (self.seq_len // self.size) if self.seq_split \
+            else 0
+
+    def rows_in(self, x: torch.Tensor) -> torch.Tensor:
+        """Every row of the residual ``x`` (B, S/m, ...): all-gathered over
+        ``model`` under a split, else ``x``."""
+        if not self.seq_split:
+            return x
+        return comm.all_gather_cat(x, self.group, 1)
+
+    def own_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole-row ``x`` under a split."""
+        if not self.seq_split:
+            return x
+        n = self.seq_len // self.size
+        return x.narrow(1, self.rank * n, n)
+
+    def rows_out(self, name: str, y: torch.Tensor) -> torch.Tensor:
+        """A sublayer's output in the residual's layout: the row-parallel
+        partials of leaf ``name`` reduce-scattered over the rows under a
+        split, else all-reduced in place; a product by a whole leaf is
+        complete (its own rows kept under a split)."""
+        if not self.sharded(name):
+            return self.own_rows(y)
+        if self.seq_split:
+            return comm.reduce_scatter(y, self.group, 1)
+        return comm.all_reduce_sum_(y, self.group)
+
+    def sum(self, y: torch.Tensor) -> torch.Tensor:
+        """Partials over ``model`` added in place (whole rows)."""
+        return comm.all_reduce_sum_(y, self.group)
+
+    def cache_split(self, name: str, dim: int) -> Tuple[int, int]:
+        """(parts, index) of the split of cache leaf ``name``'s dim ``dim``
+        over ``model`` ((1, 0) where it is whole)."""
+        from repro_torch.models.pdefs import entry_index, entry_size
+
+        entries = self.cache.get(name)
+        if not entries or not entry_axes(entries[dim]):
+            return 1, 0
+        entry = entries[dim]
+        return entry_size(entry, self.params.mesh), \
+            entry_index(entry, self.params.mesh)

@@ -12,12 +12,21 @@ nothing and are counted), at reduced size and at DiT-XL's width.
 * The ParaTAA record on registry-shaped meshes: ``chips``, the FSDP
   axes against the reference's ``resolve_spec``, all-reduce and
   all-gather bytes equal to the formula, the link tier of each group.
-* LM and train cells on a production mesh are written ``skipped`` with
-  their ROADMAP item; one-card records say "one-card"; ``main --mesh
+* LM prefill and decode cells on a production mesh are rank 0's
+  tensor-parallel program (``ok``); train cells are written ``skipped``
+  with their ROADMAP item; one-card records say "one-card"; ``main --mesh
   single`` and ``--mesh both`` write the production records.
+* The LM backbones' product FLOPs summed over the ``model`` group equal
+  the unsharded count, but for the products by leaves whose specs put
+  nothing on ``model`` (the MoE router, mamba2's ``in_B``/``in_C`` and
+  the C·Bᵀ products of their outputs, ``wk``/``wv`` where the KV heads do
+  not divide); a rank's parameter and cache bytes are the full tree's
+  over the blocks of the reference's ``resolve_spec`` and
+  ``_cache_spec_for``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 
 import numpy as np
@@ -194,28 +203,52 @@ def test_link_tiers_follow_eight_rank_nodes():
 
 
 def test_lm_and_train_cells_wait_on_production_meshes():
-    for arch, shape in (("qwen3-0.6b", "prefill_32k"),
-                        ("mamba2-1.3b", "decode_32k")):
-        rec = D.run_cell(arch, shape, mesh_label="single", verbose=False)
-        assert rec["status"] == "skipped" and rec["mesh"] == "single"
-        assert S.LM_MESH_ITEM in rec["reason"]
+    """LM prefill and decode cells are priced on fake pod and multi-pod
+    worlds (reduced widths, short shapes); train cells stay skipped with
+    TRAIN_MESH_ITEM; ``abstract_*(mesh=)`` give an LM's rank blocks."""
+    for name, sizes, label in (("pod", dict(data_parallel=2,
+                                             model_parallel=2), "single"),
+                               ("multi-pod", dict(data_parallel=2,
+                                                  model_parallel=2),
+                                "multi")):
+        with fake_mesh(name, **sizes) as mesh:
+            chips = int(np.prod(tuple(int(n) for n in mesh.mesh.shape)))
+            for arch, shape in (("qwen3-0.6b", S.ShapeConfig(
+                    "prefill_64", 64, 8, "prefill")), ("mamba2-1.3b",
+                    S.ShapeConfig("decode_64", 64, 8, "decode"))):
+                rec = D.run_cell(arch, shape, cfg=get_arch(arch).reduced(),
+                                 mesh_label=label, mesh=mesh, verbose=False)
+                assert rec["status"] == "ok" and rec["mesh"] == label
+                assert rec["chips"] == chips and rec["fits_hbm"]
+                assert rec["collective_breakdown"]["all-reduce"] > 0
+                assert sum(rec["collective_by_link"].values()) == \
+                    rec["collective_bytes_per_chip"]
+                assert "modeled, not measured" in rec["collective_model"]
+            rec = D.run_cell("qwen3-0.6b", "train_4k", mesh_label=label,
+                             mesh=mesh, verbose=False)
+            assert rec["status"] == "skipped"
+            assert S.TRAIN_MESH_ITEM in rec["reason"]
+            lm = get_arch("qwen3-0.6b").reduced()
+            params, _ = S.abstract_model_state(lm, with_opt=False,
+                                               mesh=mesh)
+            assert isinstance(params, ShardedParams)
+            assert params["layers"]["attn"]["wq"].shape[2] == 2
+            cache = S.abstract_cache(lm, S.ShapeConfig("t", 16, 4,
+                                                       "decode"), mesh=mesh)
+            assert cache["k"].shape[3] == 1 and cache["k"].device == META
     rec = D.run_cell("dit-xl", "train_4k", mesh_label="multi",
                      verbose=False)
     assert rec["status"] == "skipped" and S.TRAIN_MESH_ITEM in rec["reason"]
-    lm = get_arch("qwen3-0.6b").reduced()
-    with fake_mesh("pod", data_parallel=2, model_parallel=2) as mesh:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            S.abstract_model_state(lm, mesh=mesh)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            S.abstract_cache(lm, S.ShapeConfig("t", 16, 2, "decode"),
-                             mesh=mesh)
     rec = D._error("dit-xl", "parataa_serve", ValueError("x"))
     assert rec["mesh"] == "one-card"
 
 
 def test_main_writes_the_production_records(tmp_path, monkeypatch):
-    """``--all --mesh single`` at full width: the ParaTAA record on 256
-    ranks, every other cell skipped; the report renders it.  ``--parataa
+    """``--all --mesh single``: the ParaTAA record on 256 ranks at full
+    width and every LM prefill/decode cell that its arch supports (at
+    reduced widths and 256-token prefills here: the full-width ``--all``
+    takes minutes) ``ok``,
+    the train cells skipped; the report renders them.  ``--parataa
     --mesh both`` starts one process a production mesh (run in this one
     here, in turn: each its own fake world)."""
     import subprocess
@@ -234,19 +267,38 @@ def test_main_writes_the_production_records(tmp_path, monkeypatch):
             D.main(self.argv)
             return 0
 
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.configs.registry import ASSIGNED
     from repro_torch.roofline import report
 
+    full, shapes = D.get_arch, D.get_shape
+    monkeypatch.setattr(D, "get_arch", lambda name: full(name).reduced()
+                        if name != "dit-xl" else full(name))
+    # the prefills at 256 tokens (their cost on meta grows with the
+    # tokens; which arch supports which shape does not)
+    monkeypatch.setattr(D, "get_shape", lambda name: dataclasses.replace(
+        shapes(name), seq_len=256) if shapes(name).kind == "prefill"
+        else shapes(name))
     D.main(["--all", "--mesh", "single", "--out", str(tmp_path)])
     recs = [json.loads(p.read_text()) for p in tmp_path.glob("*.json")]
     assert all(r["mesh"] == "single" for r in recs)
     ok = [r for r in recs if r["status"] == "ok"]
-    assert [r["shape"] for r in ok] == ["parataa_serve"]
-    assert ok[0]["chips"] == 256 and ok[0]["n_samples"] == 16
-    assert ok[0]["collective_breakdown"]["all-reduce"] > 0
-    assert ok[0]["collective_by_link"]["network"] > 0
+    par = [r for r in ok if r["shape"] == "parataa_serve"]
+    assert len(par) == 1
+    assert par[0]["chips"] == 256 and par[0]["n_samples"] == 16
+    assert par[0]["collective_breakdown"]["all-reduce"] > 0
+    assert par[0]["collective_by_link"]["network"] > 0
+    want = {(a, s) for a in ASSIGNED for s, shape in SHAPES.items()
+            if shape.kind != "train"
+            and full(a).supports_shape(shape)[0]}
+    assert {(r["arch"], r["shape"]) for r in ok if r not in par} == want
+    assert all(r["chips"] == 256 for r in ok)
     assert all(r["status"] == "skipped" for r in recs if r not in ok)
+    assert all("TRAIN_MESH_ITEM" not in r.get("reason", "")
+               for r in recs)
     table = report.render(str(tmp_path), "single")
     assert "256 H100s" in table and "| dit-xl | parataa_serve |" in table
+    assert "| qwen3-0.6b | decode_32k |" in table
 
     both = tmp_path / "both"
     monkeypatch.setattr(subprocess, "Popen", InProcess)
@@ -260,3 +312,114 @@ def test_main_writes_the_production_records(tmp_path, monkeypatch):
     assert got["multi"]["n_samples"] == 32
     assert all(r["status"] == "ok" for r in got.values())
 
+
+
+# --- the LM backbones on the production meshes ------------------------------------
+
+
+def _lm_flops(cfg, shape, mesh=None) -> int:
+    cost, _ = D.cell_cost(cfg, shape, mesh=mesh)
+    return int(cost.flops)
+
+
+def _whole_flops(cfg, kind: str, b: int, s: int) -> int:
+    """Product FLOPs (a batch of ``b`` rows of ``s`` tokens) that every
+    model rank runs whole: the products by leaves whose specs put nothing
+    on ``model`` in this cell."""
+    d, L = cfg.d_model, cfg.num_layers
+    t = b * (1 if kind == "decode" else s)
+    if cfg.is_ssm:           # in_B, in_C; the chunks' C·Bᵀ products
+        gn = cfg.ssm_ngroups * cfg.ssm_state
+        per = 2 * 2 * t * d * gn
+        if kind != "decode":
+            q = min(cfg.ssm_chunk, s)
+            per += 2 * b * (s // q) * cfg.ssm_ngroups * q * q \
+                * cfg.ssm_state
+        return L * per
+    whole = 0
+    if cfg.is_moe:                                   # the router
+        from repro_torch.models.moe import padded_experts
+
+        whole += L * 2 * t * d * padded_experts(cfg)
+    if cfg.tp_strategy == "heads" and cfg.num_kv_heads % 4:
+        whole += L * 2 * 2 * t * d * cfg.num_kv_heads * cfg.head_dim
+    return whole
+
+
+@pytest.mark.parametrize("arch,kind", [
+    ("qwen3-0.6b", "prefill"), ("qwen3-0.6b", "decode"),
+    ("recurrentgemma-2b", "prefill"), ("mamba2-1.3b", "prefill"),
+    ("qwen2-moe-a2.7b", "prefill"), ("qwen2-72b", "prefill")])
+def test_lm_tp_flops_summed_over_model_equal_the_unsharded_count(arch,
+                                                                kind):
+    """Rank 0 of (data 2, model 4) on a fake pod: its product FLOPs, but
+    for the products every model rank runs whole, times 4 and times the 2
+    data shards, are the one-card cell's exactly."""
+    cfg = get_arch(arch).reduced()
+    shape = S.ShapeConfig(kind, 64, 4, kind)
+    host = _lm_flops(cfg, shape)
+    with fake_mesh("pod", data_parallel=2, model_parallel=4) as mesh:
+        rank0 = _lm_flops(cfg, shape, mesh)
+    whole = _whole_flops(cfg, kind, 2, 64)
+    assert 2 * (4 * (rank0 - whole) + whole) == host, (rank0, whole, host)
+    assert rank0 < host / 8 * 1.5
+
+
+@pytest.mark.parametrize("name,sizes", [
+    ("pod", dict(data_parallel=2, model_parallel=4)),
+    ("multi-pod", dict(data_parallel=2, model_parallel=2))],
+    ids=["pod-2x4", "multi-pod-2x2x2"])
+def test_lm_rank_param_and_cache_bytes_are_the_reference_blocks(name,
+                                                                 sizes):
+    """Every LM arch (reduced): each leaf of a rank's params
+    (``abstract_model_state(mesh=)``; the RG-LRU gates by their
+    block-diagonal layout) and of its cache (``abstract_cache(mesh=)``)
+    holds the full leaf's elements over the blocks of the reference's
+    ``resolve_spec`` / ``_cache_spec_for``."""
+    from repro.configs.registry import ARCHS as JARCHS
+    from repro.launch.steps import _cache_spec_for as jcache_spec
+    from repro.models import backbone as jb
+    from repro.models import pdefs as jpdefs
+    from repro_torch.configs.registry import ASSIGNED
+    from repro_torch.models import backbone as tb
+    from repro_torch.tree import flatten_with_paths, path_name
+    from tests.test_torch_pdefs_specs import _jax_leaves
+    from tests.test_torch_placement import GridMesh
+
+    shape = S.ShapeConfig("d", 64, 8, "decode")
+    with fake_mesh(name, **sizes) as mesh:
+        dims = tuple(int(n) for n in mesh.mesh.shape)
+        grid = GridMesh(dims, mesh.mesh_dim_names)
+        sizes_of = dict(zip(mesh.mesh_dim_names, dims))
+
+        def blocks(spec):
+            return int(np.prod([sizes_of[a] for e in spec
+                                for a in pdefs.entry_axes(e)]))
+
+        for arch in ASSIGNED:
+            cfg = get_arch(arch).reduced()
+            jcfg = JARCHS[arch].reduced()
+            want = {p: tuple(jpdefs.resolve_spec(leaf, grid)) for p, leaf
+                    in _jax_leaves(jb.build_defs(jcfg)).items()}
+            local = S.abstract_model_state(cfg, with_opt=False, mesh=mesh)[0]
+            for (path, spec), leaf in zip(pdefs.walk(tb.build_defs(cfg)),
+                                          leaves(local.local)):
+                key = "/".join(map(str, path))
+                assert local.specs[key] == want[key], (arch, key)
+                assert leaf.numel() * blocks(want[key]) == \
+                    int(np.prod(spec.shape)), (arch, key)
+            cache = S.abstract_cache(cfg, shape, mesh=mesh)
+            whole = tb.init_cache(cfg, 8, 64, torch.bfloat16, META)
+            for (path, w), (_, leaf) in zip(flatten_with_paths(whole),
+                                            flatten_with_paths(cache.local)):
+                key = path_name(path)
+                stacked = not cfg.is_hybrid or "periods" in key
+                if key.endswith("index"):
+                    spec = (None,) * w.dim()
+                elif stacked:
+                    spec = (None,) + tuple(jcache_spec(key, w.shape[1:],
+                                                       grid))
+                else:
+                    spec = tuple(jcache_spec(key, w.shape, grid))
+                assert cache.specs[key] == spec, (arch, key)
+                assert leaf.numel() * blocks(spec) == w.numel(), (arch, key)

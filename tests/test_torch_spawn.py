@@ -12,7 +12,9 @@ package must supply (noise, oracle weights) the parent test writes to
 ``workdir/inputs.npz`` first.
 
 The one test here holds the port's counted collectives (``repro_torch.
-comm``) to exact data movement on 2 ranks.
+comm``: the all-gathers exact data movement, the all-reduces' min and
+max, the reduce-scatter's block of the sum) to what each rank sent, on
+2 ranks.
 """
 from __future__ import annotations
 
@@ -134,6 +136,16 @@ def _case_comm(rank: int, world: int, workdir: Path) -> dict:
     flag = comm.all_reduce_min(torch.tensor(rank % 2, dtype=torch.int32),
                                None)
     out["min"] = int(flag)
+    top = comm.all_reduce_max(torch.tensor([rank, -rank],
+                                           dtype=torch.float32), None)
+    out["max"] = top.tolist()
+    # each rank keeps its block of the sum (rows 2r, 2r + 1)
+    x = torch.arange(4 * world, dtype=torch.float32).view(2 * world, 2) \
+        * (rank + 1)
+    got = comm.reduce_scatter(x, None, 0)
+    want = torch.arange(4 * world, dtype=torch.float32).view(2 * world, 2) \
+        * sum(r + 1 for r in range(world))
+    out["reduce_scatter"] = _bitwise(got, want[2 * rank:2 * rank + 2])
     out["object"] = comm.broadcast_object({"from": rank, "k": [1, 2]})
     out["counts"] = dict(comm.counts)
     return out
@@ -384,10 +396,11 @@ def test_counted_collectives_are_exact_on_two_gloo_ranks(tmp_path):
     for rank, out in enumerate(outs):
         assert out["torch.float32"] and out["torch.bfloat16"] \
             and out["torch.bool"], out
-        assert out["min"] == 0
+        assert out["min"] == 0 and out["max"] == [1.0, 0.0]
+        assert out["reduce_scatter"], out
         assert out["object"] == {"from": 0, "k": [1, 2]}
-        assert out["counts"] == {"all-gather": 3, "all-reduce": 1,
-                                 "broadcast": 1}
+        assert out["counts"] == {"all-gather": 3, "all-reduce": 2,
+                                 "reduce-scatter": 1, "broadcast": 1}
 
 
 if __name__ == "__main__":
