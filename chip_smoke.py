@@ -214,7 +214,7 @@ is not 0):
    host tree's logits, collectives by the formula, prefill and decode ms
    host / TP; qwen3-0.6b's wrapper engine (fused) with equal iters and
    nfe.  (c) ``python -m repro_torch.launch.dryrun --all --mesh both`` in
-   a subprocess (started before phase 11: it needs no card): every LM
+   a subprocess, after (b) so that no timing runs beside it: every LM
    prefill and decode cell on pod (256) and multi-pod (512) at full
    width, rank 0's tensor-parallel program in a fake world, one modeled
    record printed a cell.
@@ -2548,11 +2548,13 @@ def placement_path():
 def moe_expert_parallel():
     """Phase 10 (c): qwen2-moe-a2.7b's MoE block (weights drawn on the card,
     bf16) at phase 8 (d2)'s shapes — capacity factor 1.25, 4 x 2048 tokens
-    — through the expert-parallel function (``moe._moe_shard_map``) on a
-    (data 1, model 1) mesh against the local path: at one model rank it
-    owns every expert and the same per-rank capacity, so the outputs agree
-    bit for bit; its two all-reduces (the partials over model, the aux loss
-    over data) counted and both paths timed."""
+    — through the expert-parallel function (``moe.expert_parallel``, the
+    rank's blocks through the tensor-parallel layer the LM backbones run)
+    on a (data 1, model 1) mesh against the local path: at one model rank
+    it owns every expert and the same capacity, so the outputs agree bit
+    for bit; its one all-reduce (the experts' and shared MLP's partials
+    over model; the aux loss moves only over data axes of more than one
+    rank) counted and both paths timed."""
     import torch
 
     from repro_torch import comm
@@ -2573,12 +2575,12 @@ def moe_expert_parallel():
     with torch.inference_mode():
         y_loc, aux_loc = moe._moe_local(params, cfg, x)
         comm.reset()
-        y_ep, aux_ep = moe._moe_shard_map(params, cfg, x, mesh, ("data",), 1)
+        y_ep, aux_ep = moe.expert_parallel(params, cfg, x, mesh)
         counts = dict(comm.counts)
         local_ms = cuda_ms(lambda: moe._moe_local(params, cfg, x),
                            warmup=1, samples=5, reps=2)
-        ep_ms = cuda_ms(lambda: moe._moe_shard_map(
-            params, cfg, x, mesh, ("data",), 1), warmup=1, samples=5, reps=2)
+        ep_ms = cuda_ms(lambda: moe.expert_parallel(params, cfg, x, mesh),
+                        warmup=1, samples=5, reps=2)
     same = torch.equal(y_loc, y_ep) and torch.equal(aux_loc, aux_ep)
     print(f"phase 10 (c) {MOE_ARCH} MoE block, bf16, factor "
           f"{cfg.moe_capacity_factor}, 4 x 2048: expert-parallel at model=1 "
@@ -2587,7 +2589,7 @@ def moe_expert_parallel():
           f"collectives {counts}; ms local {local_ms}, expert-parallel "
           f"{ep_ms} (CUDA events)")
     check(same, "phase 10 (c): expert-parallel MoE differs from local")
-    check(counts["all-reduce"] == 2, f"phase 10 (c): collectives {counts}")
+    check(counts["all-reduce"] == 1, f"phase 10 (c): collectives {counts}")
     return dict(local_ms=local_ms, ep_ms=ep_ms, collectives=counts)
 
 
@@ -3088,7 +3090,7 @@ def wrapper_weights(cfg, device):
     return params
 
 
-def lm_tensor_parallel_path(dryrun=None):
+def lm_tensor_parallel_path():
     """Phase 12: the LM backbones tensor-parallel over ``model``.  (a) a
     world of one over NCCL on a (1, 1) ``debug`` mesh: qwen3-0.6b at full
     width and depth, float32 (TF32 off): prefill 2 x 512 and 8 decode
@@ -3098,9 +3100,9 @@ def lm_tensor_parallel_path(dryrun=None):
     bit the host placement's, with equal iters, nfe, polls and K1-K3
     launches; ms host / TP.  (b) two gloo ranks on the one card, model 2
     (:func:`tp_lm_on_gloo`).  (c) the dry-run's LM prefill and decode
-    cells on pod and multi-pod (modeled): ``dryrun``, the waiter of a
-    :func:`lm_production_dryrun` started earlier (it needs no card), or
-    one started here."""
+    cells on pod and multi-pod (modeled, :func:`lm_production_dryrun`),
+    after (b): it runs on the host's cores, and no timing runs beside
+    it."""
     import shutil
     import tempfile
 
@@ -3178,10 +3180,8 @@ def lm_tensor_parallel_path(dryrun=None):
         dist.destroy_process_group()
         shutil.rmtree(rdv, ignore_errors=True)
     free_card()
-    if dryrun is None:
-        dryrun = lm_production_dryrun()
     out["gloo"] = tp_lm_on_gloo()
-    out["dryrun"] = dryrun()
+    out["dryrun"] = lm_production_dryrun()
     return out
 
 
@@ -3293,12 +3293,14 @@ def tp_lm_gloo_rank(rank: int, work: Path) -> None:
 
 
 def lm_production_dryrun():
-    """Phase 12 (c): starts ``python -m repro_torch.launch.dryrun --all
+    """Phase 12 (c): runs ``python -m repro_torch.launch.dryrun --all
     --mesh both`` in a subprocess (every LM prefill and decode cell on pod
     (256 ranks) and multi-pod (512) at full width in fake worlds, rank 0's
-    tensor-parallel program, modeled) and returns the function that waits
-    for it and prints one record a cell."""
+    tensor-parallel program, modeled), waits for it and prints one record
+    a cell."""
     import os
+    import shutil
+    import signal
 
     out_dir = ROOT / "build" / "chip_smoke_dryrun_lm"
     t0 = time.monotonic()
@@ -3306,19 +3308,14 @@ def lm_production_dryrun():
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
          "--mesh", "both", "--out", str(out_dir)], cwd=ROOT,
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
-        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
-    return lambda: lm_dryrun_records(proc, out_dir, t0)
-
-
-def lm_dryrun_records(proc, out_dir: Path, t0: float) -> dict:
-    """Waits for phase 12 (c)'s dry-run and prints its LM records."""
-    import shutil
-
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
     try:
         _, err = proc.communicate(timeout=900)
     finally:
-        if proc.poll() is None:
-            proc.kill()
+        # the dry-run's own per-mesh processes too
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
     check(proc.returncode == 0, f"phase 12 (c): dry-run failed: {err[-3000:]}")
     recs = {}
     for path in sorted(out_dir.glob("*.json")):
@@ -3795,9 +3792,6 @@ def main() -> int:
             mesh[mode]["launches"][name]
     t11 = time.monotonic()
     free_card()
-    # phase 12 (c) needs no card: its CPU subprocess runs beside phase 11
-    # and phase 12 (a)-(b)
-    dryrun12 = lm_production_dryrun()
     tp = tensor_parallel_path(mesh)
     for name in ("taa_gram", "taa_apply", "taa_round"):
         mode = "fused" if name == "taa_round" else "staged"
@@ -3805,7 +3799,7 @@ def main() -> int:
             tp[mode]["launches"][name]
     t12 = time.monotonic()
     free_card()
-    tp_lm = lm_tensor_parallel_path(dryrun12)
+    tp_lm = lm_tensor_parallel_path()
     for name in ("taa_gram", "taa_apply", "taa_round"):
         mode = "fused" if name == "taa_round" else "staged"
         next(r for r in rows if r["name"] == name)["tp_lm_launches"] = \

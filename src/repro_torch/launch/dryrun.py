@@ -264,7 +264,7 @@ def _unit_tp(cfg, kinds, lp, defs, shape: ShapeConfig, mesh, device):
         return LayerTP(tp, pre, own, split, s_eff)
 
     def apply(h, pos):
-        p = B._layer_blocks(tp, "", tp.local)
+        p = tp.gather_tree("", tp.local)
         if cfg.is_hybrid:
             return B._apply_group(cfg, kinds, p, h, pos, mode=mode,
                                   cache=cache.local, causal=True,

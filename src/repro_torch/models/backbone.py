@@ -48,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import comm
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import rglru
 from repro_torch.models.attention import attention, attention_def, \
     init_attn_cache
 from repro_torch.models.layers import mlp, mlp_def, rmsnorm, rmsnorm_def
@@ -58,7 +59,7 @@ from repro_torch.models.pdefs import ParamSpec, stack_defs
 from repro_torch.models.rglru import init_rglru_cache, rglru_apply, \
     rglru_def
 from repro_torch.models.shardctx import LayerTP, ShardedCache, ShardedParams
-from repro_torch.tree import flatten_with_paths, leaves, path_name, unflatten
+from repro_torch.tree import leaves
 
 # ---------------------------------------------------------------------------
 # Definitions
@@ -287,8 +288,9 @@ def tp_collectives(cfg: ArchConfig, mode: str, model: int, data: int,
       with model > 1, the rank's heads' output all-reduced;
     * mamba2: 1 all-reduce of the gated norm's sum of squares, with a
       cache 1 all-gather of the conv_B/conv_C carries (model > 1);
-      RG-LRU: 1 all-gather of the shared gate block's inputs at model >
-      8; each their ``out``/``w_o`` reduction;
+      RG-LRU: 1 all-gather of the shared gate block's inputs where model
+      does not divide ``rglru.NUM_GATE_BLOCKS``; each their
+      ``out``/``w_o`` reduction;
     * the MLP, or the MoE's experts and shared MLP together: 1 reduction;
       in train mode the MoE's aux loss all-reduced over data > 1;
     * over data > 1: one flat all-gather of the embed rows a layer (a
@@ -326,7 +328,7 @@ def tp_collectives(cfg: ArchConfig, mode: str, model: int, data: int,
             c["all-reduce"] += 1
             c[out_kind] += 1
         else:
-            c["all-gather"] += split + (model > 8)
+            c["all-gather"] += split + (rglru.NUM_GATE_BLOCKS % model != 0)
             c[out_kind] += 1
         if kind != "ssm":
             c["all-gather"] += split
@@ -350,14 +352,6 @@ def _forward_only(tp: ShardedParams) -> None:
         raise NotImplementedError(
             f"the tensor-parallel LM backbones are forward-only: "
             f"{TRAIN_MESH_ITEM}")
-
-
-def _layer_blocks(tp: ShardedParams, prefix: str, tree):
-    """A layer's blocks (``tree``, leaf paths under ``prefix``) with their
-    data-axis splits all-gathered (one flat all-gather)."""
-    items = [(prefix + path_name(p), x) for p, x in flatten_with_paths(tree)]
-    full = tp.gather(dict(items))
-    return unflatten(tree, [full[k] for k, _ in items])
 
 
 def _trunk_tp(tp: ShardedParams, cfg: ArchConfig, h, positions, *,
@@ -386,12 +380,12 @@ def _trunk_tp(tp: ShardedParams, cfg: ArchConfig, h, positions, *,
         tps = [view(f"periods/l{j}/", f"periods/l{j}/", True)
                for j in range(len(group_kinds))]
         for gp, gc in zip(_unstack(tree["periods"], n_per), caches):
-            gp = _layer_blocks(tp, "periods/", gp)
+            gp = tp.gather_tree("periods/", gp)
             h, a = _apply_group(cfg, group_kinds, gp, h, positions,
                                 mode=mode, cache=gc, causal=causal, tps=tps)
             aux = _add(aux, a)
         for j, kind in enumerate(tail_kinds):
-            lp = _layer_blocks(tp, f"tail/{j}/", tree["tail"][j])
+            lp = tp.gather_tree(f"tail/{j}/", tree["tail"][j])
             h, a = _apply_layer(cfg, kind, lp, h, positions, mode=mode,
                                 cache=local["tail"][j] if local is not None
                                 else None, causal=causal,
@@ -402,13 +396,13 @@ def _trunk_tp(tp: ShardedParams, cfg: ArchConfig, h, positions, *,
         caches = _unstack(local, L) if local is not None else [None] * L
         ltp = view("layers/", "", True)
         for lp, lc in zip(_unstack(tree["layers"], L), caches):
-            h, a = _apply_layer(cfg, kind, _layer_blocks(tp, "layers/", lp),
+            h, a = _apply_layer(cfg, kind, tp.gather_tree("layers/", lp),
                                 h, positions, mode=mode, cache=lc,
                                 causal=causal, tp=ltp)
             aux = _add(aux, a)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    norm = _layer_blocks(tp, "final_norm/", tree["final_norm"])
+    norm = tp.gather_tree("final_norm/", tree["final_norm"])
     return rmsnorm(norm, h, cfg.norm_eps), cache, aux
 
 

@@ -16,21 +16,19 @@ Unlike the reference's scatter-add, the combine puts the slots back in
 The capacity is computed on the host from shapes; nothing reads the
 device.
 
-Expert parallelism (:func:`_moe_shard_map`, the reference's shard_map
-branch): under an ambient mesh with a ``model`` axis of more than one rank
-whose size divides the padded expert count, each rank holds its data
-shard's tokens and routes them to the ``ep / model`` experts it owns,
-dropping past a per-rank capacity ``c_loc``; one all-reduce over the
-``model`` group (the reference's ``psum``) sums the partial outputs, and
-the aux loss is averaged over the data axes.
-
-Tensor parallel (``tp``, a ``shardctx.LayerTP`` over a rank's blocks;
+Expert parallelism (``tp``, a ``shardctx.LayerTP`` over a rank's blocks;
 forward only): the experts are the rank's block of ``we_*`` (``expert``
-over ``model``, the reference's shard_map in_specs), routed as above; the
-shared-expert MLP is column/row parallel over ``mlp``; the router stays
-whole.  The experts' partials and the shared MLP's are added first and
-summed over ``model`` in the layer's one all-reduce (reduce-scatter over
-the rows under a sequence split).
+over ``model``, the reference's shard_map in_specs); each rank routes all
+its data shard's tokens with the whole router and dispatches them to the
+experts it owns, dropping past the capacity of the call's tokens; the
+shared-expert MLP is column/row parallel over ``mlp``.  The experts'
+partials and the shared MLP's are added first and summed over ``model``
+in the layer's one all-reduce (the reference's ``psum``; a reduce-scatter
+over the rows under a sequence split), and in ``train`` mode the aux loss
+is averaged over the data axes.  The LM backbones pass their layer's
+``tp``; under an ambient mesh whose ``model`` axis has more than one rank
+and divides the padded expert count, ``moe_apply`` builds it from a whole
+tree (:func:`expert_parallel`, the reference's shard_map branch).
 """
 from __future__ import annotations
 
@@ -100,12 +98,12 @@ def router_probs(params, cfg: ArchConfig, x):
 
 def moe_apply(params, cfg: ArchConfig, x, capacity: Optional[int] = None,
               tp=None, mode: str = "train"):
-    """x: (B, S, d) -> (y, aux loss).  Expert-parallel
-    (:func:`_moe_shard_map`) under an ambient mesh whose ``model`` axis has
-    more than one rank and divides the padded expert count (on a mesh,
-    ``x`` is this rank's data shard of the tokens); else the local path.
-    ``tp``: the layer's ``shardctx.LayerTP`` (the module docstring); the
-    aux loss is averaged over the data axes in ``train`` mode only."""
+    """x: (B, S, d) -> (y, aux loss).  ``tp``: the layer's
+    ``shardctx.LayerTP`` (the module docstring).  Without one, expert
+    parallel (:func:`expert_parallel`) under an ambient mesh whose
+    ``model`` axis has more than one rank and divides the padded expert
+    count (on a mesh, ``x`` is this rank's data shard of the tokens); else
+    the local path."""
     from repro_torch.models.shardctx import current_mesh
 
     if tp is not None:
@@ -113,11 +111,10 @@ def moe_apply(params, cfg: ArchConfig, x, capacity: Optional[int] = None,
 
     mesh = current_mesh()
     if mesh is not None:
-        sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
-        dp_axes = tuple(a for a in ("pod", "data") if a in sizes)
-        msize = sizes.get("model", 1)
+        msize = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)).get("model",
+                                                                     1)
         if msize > 1 and params["we_gate"].shape[0] % msize == 0:
-            return _moe_shard_map(params, cfg, x, mesh, dp_axes, msize)
+            return expert_parallel(params, cfg, x, mesh, mode)
     return _moe_local(params, cfg, x, capacity)
 
 
@@ -161,35 +158,18 @@ def _dispatch(xt, ids, weights, wg, wu, wd, act, n_exp: int,
         t, k, d).sum(dim=1)
 
 
-def _moe_shard_map(params, cfg: ArchConfig, x, mesh, dp_axes, msize: int):
-    """Expert-parallel MoE on this rank: its ``ep / msize`` experts over
-    its tokens ``x`` (B, S, d), the partial outputs summed over the
-    ``model`` group (one all-reduce), the aux loss averaged over the data
-    axes.  Matches the local path within float32 rounding when no slot is
-    dropped (the sums over a token's experts are taken in another order)."""
-    from repro_torch import comm
-    from repro_torch.launch.mesh import axes_group
+def expert_parallel(params, cfg: ArchConfig, x, mesh, mode: str = "train"):
+    """The MoE layer of a whole tree ``params`` on this rank of ``mesh``:
+    its blocks of :func:`moe_def` (its experts over ``model``, the embed
+    rows gathered over the data axes) through the tensor-parallel form.
+    Matches the local path within float32 rounding when no slot is
+    dropped (the sums over a token's experts are taken in another order);
+    at one model rank, bit for bit."""
+    from repro_torch.models.shardctx import LayerTP, ShardedParams
 
-    b, s, d = x.shape
-    t = b * s
-    ep = params["we_gate"].shape[0]
-    e_loc = ep // msize
-    c_loc = moe_capacity(cfg, t, ep)
-    xt = x.reshape(t, d)
-    weights, ids, aux = router_probs(params, cfg, xt)
-    if dp_axes:
-        group = axes_group(mesh, dp_axes)
-        aux = comm.all_reduce_sum(aux, group) / comm.group_size(group)
-    lo = mesh.get_local_rank("model") * e_loc
-    part = slice(lo, lo + e_loc)
-    out = _dispatch(xt, ids, weights, params["we_gate"][part],
-                    params["we_up"][part], params["we_down"][part],
-                    act_fn(cfg.act), e_loc, c_loc, lo)
-    # the one collective: the experts' partials summed over `model`
-    out = comm.all_reduce_sum(out, mesh.get_group("model"))
-    if cfg.num_shared_experts:
-        out = out + mlp(params["shared"], xt, cfg.act).float()
-    return out.to(x.dtype).reshape(b, s, d), aux
+    sp = ShardedParams.build({"moe": params}, {"moe": moe_def(cfg)}, mesh)
+    return _moe_tp(sp.gather_tree("moe/", sp["moe"]), cfg, x, LayerTP(sp),
+                   mode)
 
 
 def _moe_tp(params, cfg: ArchConfig, x, tp, mode: str):

@@ -70,18 +70,24 @@ def init_rglru_cache(cfg: ArchConfig, batch: int, dtype, device):
     }
 
 
-def _block_diag(x, w, b):
-    """x: (..., d); w: (nb, bs, bs) -> (..., d), in x's dtype."""
+def _block_diag(x, w, b, xin=None):
+    """x: (..., c); w: (nb, bs, cols) blocks over the nb·bs channels of
+    ``xin`` (``x`` itself unless given) -> (..., c), in x's dtype."""
     nb, bs, _ = w.shape
-    xs = x.reshape(*x.shape[:-1], nb, bs)
+    src = x if xin is None else xin
+    xs = src.reshape(*src.shape[:-1], nb, bs)
     y = torch.einsum("...nk,nkj->...nj", xs, w)
     return y.reshape(x.shape) + b
 
 
-def _rglru_gates(params, u):
-    """u: (B, S, d) conv output -> (a, b_term), both float32."""
-    r = torch.sigmoid(_block_diag(u, params["w_a"], params["b_a"]).float())
-    i = torch.sigmoid(_block_diag(u, params["w_i"], params["b_i"]).float())
+def _rglru_gates(params, u, xin=None):
+    """u: (B, S, c) conv output -> (a, b_term), both float32.  ``xin``:
+    the gate blocks' inputs where they are not ``u`` (a rank's gate
+    columns of a block it shares, :func:`_gate_inputs`)."""
+    r = torch.sigmoid(_block_diag(u, params["w_a"], params["b_a"],
+                                  xin).float())
+    i = torch.sigmoid(_block_diag(u, params["w_i"], params["b_i"],
+                                  xin).float())
     log_a = -RGLRU_C * F.softplus(params["lam"]) * r        # <= 0
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
@@ -118,26 +124,6 @@ def _gate_inputs(u, tp):
     return comm.all_gather_cat(u, model_subgroup(tp.params.mesh, share), -1)
 
 
-def _rglru_gates_tp(params, u, tp):
-    """The gates of a rank's channels from its (nb_loc, bs, cols) gate
-    blocks (``pdefs.gate_blocks``); u: (B, S, c) its conv output."""
-    nb, bs, cols = params["w_a"].shape
-    xin = _gate_inputs(u, tp)
-    xs = xin.reshape(*xin.shape[:-1], nb, bs)
-
-    def gate(w, b):
-        y = torch.einsum("...nk,nkj->...nj", xs, w)
-        return torch.sigmoid((y.reshape(u.shape) + b).float())
-
-    r, i = gate(params["w_a"], params["b_a"]), gate(params["w_i"],
-                                                    params["b_i"])
-    log_a = -RGLRU_C * F.softplus(params["lam"]) * r
-    a = torch.exp(log_a)
-    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
-        * i * u.float()
-    return a, b
-
-
 def rglru_apply(params, cfg: ArchConfig, x, *, mode: str = "train",
                 cache: Optional[dict] = None, tp=None):
     """Griffin recurrent block.  x: (B, S, d) -> (y, cache).  Prefill and
@@ -149,10 +135,8 @@ def rglru_apply(params, cfg: ArchConfig, x, *, mode: str = "train",
     u = x @ params["w_x"]
     u, new_conv = _causal_conv(u, params["conv"],
                                cache["conv"] if cache is not None else None)
-    if tp is not None and tp.sharded("rec/w_a"):
-        a, b = _rglru_gates_tp(params, u, tp)
-    else:
-        a, b = _rglru_gates(params, u)
+    a, b = _rglru_gates(params, u, _gate_inputs(u, tp)
+                        if tp is not None and tp.sharded("rec/w_a") else None)
 
     if mode == "decode":
         if x.shape[1] != 1 or cache is None:

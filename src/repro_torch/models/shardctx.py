@@ -304,6 +304,17 @@ class ShardedParams:
                 start += x.numel()
         return out
 
+    def gather_tree(self, prefix: str, tree):
+        """A subtree of blocks (``tree``, leaf paths under ``prefix``), a
+        layer's for instance, with its data-axis splits all-gathered in
+        one flat all-gather (:meth:`gather`)."""
+        from repro_torch.tree import flatten_with_paths, path_name, unflatten
+
+        items = [(prefix + path_name(p), x)
+                 for p, x in flatten_with_paths(tree)]
+        full = self.gather(dict(items))
+        return unflatten(tree, [full[k] for k, _ in items])
+
     @property
     def model_group(self):
         if (self.model_axis,) not in self.groups \

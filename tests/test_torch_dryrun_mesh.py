@@ -294,8 +294,18 @@ def test_main_writes_the_production_records(tmp_path, monkeypatch):
     assert {(r["arch"], r["shape"]) for r in ok if r not in par} == want
     assert all(r["chips"] == 256 for r in ok)
     assert all(r["status"] == "skipped" for r in recs if r not in ok)
-    assert all("TRAIN_MESH_ITEM" not in r.get("reason", "")
-               for r in recs)
+    # what is skipped is a shape its arch does not support, or a train
+    # cell (or the DiT's, whose mesh form is the ParaTAA record) waiting
+    # on TRAIN_MESH_ITEM: never a supported LM prefill or decode cell
+    for r in recs:
+        if r not in ok:
+            shape = SHAPES[r["shape"]]
+            waits = S.TRAIN_MESH_ITEM in r["reason"]
+            assert waits != (not full(r["arch"]).supports_shape(shape)[0]), r
+            assert not waits or shape.kind == "train" \
+                or full(r["arch"]).is_diffusion, r
+    assert any(S.TRAIN_MESH_ITEM in r["reason"] for r in recs
+               if r not in ok)
     table = report.render(str(tmp_path), "single")
     assert "256 H100s" in table and "| dit-xl | parataa_serve |" in table
     assert "| qwen3-0.6b | decode_32k |" in table

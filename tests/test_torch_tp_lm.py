@@ -479,19 +479,21 @@ def test_tp_collectives_equal_the_formula(lm_runs, name):
     ``backbone.tp_collectives`` (its docstring is the formula)."""
     from repro_torch.models.backbone import tp_collectives
 
-    cfg = _cfg(name)
     for _, key, rec in _cases(lm_runs[0]):
-        if not key.startswith(name + "/") or "/nb" in key:
+        if not key.startswith(name + "/"):
             continue
         data, model = map(int, key.split("/")[1].split("x"))
-        cap = S + STEPS if not cfg.window_size else min(cfg.window_size,
-                                                       S + STEPS)
-        prefill, *decodes = rec["counts"]
-        assert prefill == tp_collectives(cfg, "prefill", model, data, S,
-                                         cap), (key, prefill)
-        for got in decodes:
-            assert got == tp_collectives(cfg, "decode", model, data, 1,
-                                         cap), (key, got)
+        nb = int(key.split("/nb")[1]) if "/nb" in key else None
+        with _gate_blocks(nb):
+            cfg = _cfg(name)
+            cap = S + STEPS if not cfg.window_size else min(cfg.window_size,
+                                                           S + STEPS)
+            prefill, *decodes = rec["counts"]
+            assert prefill == tp_collectives(cfg, "prefill", model, data, S,
+                                             cap), (key, prefill)
+            for got in decodes:
+                assert got == tp_collectives(cfg, "decode", model, data, 1,
+                                             cap), (key, got)
 
 
 @pytest.mark.parametrize("name", list(ARCHS))
