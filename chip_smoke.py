@@ -107,7 +107,8 @@ is not 0):
    no kernel launched; step wall, forward+backward and update ms printed.
 
 8. mamba2-1.3b, recurrentgemma-2b and qwen2-moe-a2.7b at full width, on a
-   card freed of phase 7: (a) mamba2-1.3b (48 layers, d 2048, 64 SSD heads
+   card freed of phase 7: (a) mamba2-1.3b (24 of its 48 layers: the depth
+   cut ``SSM_LAYERS``; d 2048, 64 SSD heads
    of 64, state 128, chunk 256) as phase 7's wrapper denoiser (numpy seed
    0; fused, staged and sequential under sync-debug mode "error"; K3 once
    an iteration fused, K1 and K2 staged, none sequential; x0 within 2e-2 of
@@ -191,7 +192,7 @@ is not 0):
    meshes in a fake world, modeled (per-chip FLOPs, bytes, peak and
    ``fits_hbm``, collective bytes by kind and by link).  (c) two
    processes on the one card in a gloo group (gloo takes CUDA tensors),
-   ``debug`` with model 2: DiT-XL at full width and depth, its 16
+   ``debug`` with model 2: DiT-XL at full width, 14 of its 28 layers, its 16
    heads split 8 a rank, against the host placement in float32 at 16
    tokens: eps within 1e-5, trajectories within 1e-4, iters and nfe
    equal (fused).
@@ -206,18 +207,42 @@ is not 0):
    and fused, bit for bit the host placement with equal iters, nfe,
    polls and K1-K3 launches.  (b) two processes on the one card in a
    gloo group (``chip_smoke.py --tp-lm-gloo-rank R DIR``), ``debug`` with
-   model 2, float32 at full width: qwen3-0.6b (28 layers),
+   model 2, float32 at full width: qwen3-0.6b (14 layers),
    recurrentgemma-2b (one period: two RG-LRU layers and local attention
    over an MQA cache split over slots, softcap), mamba2-1.3b (2 layers)
    and qwen2-moe-a2.7b (2 layers: experts over model and the shared
    MLP); each prefill 2 x 512 and 8 decodes within 1e-5 relative of the
    host tree's logits, collectives by the formula, prefill and decode ms
    host / TP; qwen3-0.6b's wrapper engine (fused) with equal iters and
-   nfe.  (c) ``python -m repro_torch.launch.dryrun --all --mesh both`` in
-   a subprocess, after (b) so that no timing runs beside it: every LM
-   prefill and decode cell on pod (256) and multi-pod (512) at full
-   width, rank 0's tensor-parallel program in a fake world, one modeled
-   record printed a cell.
+   nfe.  (c) ``python -m repro_torch.launch.dryrun --arch
+   qwen3-0.6b,mamba2-1.3b --shape prefill_32k,decode_32k --mesh both`` in
+   a subprocess, last, beside 13 (c), so that no timing runs beside it:
+   those LM prefill and decode cells on pod (256) and multi-pod (512) at
+   full width, rank 0's tensor-parallel program in a fake world, one
+   modeled record printed a cell (the CPU's ``--all --mesh both`` writes
+   every cell's).
+13. the tensor-parallel train step (``launch.steps.make_train_step`` on a
+   rank's ``ShardedParams``: forward, backward with every collective's
+   adjoint, the gradient sync, the mesh's global norm, AdamW on the
+   blocks).  (a) a world of one over NCCL on a (1, 1) ``debug`` mesh,
+   float32, TF32 off, deterministic algorithms: DiT-XL (28 layers, batch
+   16 x 16 tokens) and qwen3-0.6b (28 layers, batch 8 x 128) at full
+   width, 3 steps of grad_accum 2, host step against TP step: losses,
+   grad norms and every leaf bit for bit, collectives a step by
+   ``dit``/``backbone.tp_train_collectives``, step ms host / TP (CUDA
+   events), the TP step's allocation peak beside the dry-run's count of
+   the same step, no kernel of the port launched.  (b) two processes on
+   the one card in a gloo group (``chip_smoke.py --tp-train-gloo-rank R
+   DIR``), ``debug`` with model 2, published widths: DiT-XL (4 layers),
+   qwen3-0.6b, mamba2-1.3b, qwen2-moe-a2.7b (2 layers each) and
+   recurrentgemma-2b (one period), 2 steps against the host step run one
+   rank at a time: losses and grad norms within 1e-5 relative, the first
+   batch's gradients of each block within 1e-5 of its leaf's largest
+   gradient entry, params within 1e-5 of each leaf's largest entry (5e-5
+   for the adaLN leaves) where the first gradient is resolved (the rest
+   within 2 x the steps' learning rates), collectives by the formula.
+   (c) ``dryrun --arch dit-xl,qwen3-0.6b --shape train_4k --mesh both``,
+   beside 12 (c): their train_4k cells on pod and multi-pod, modeled.
 
 Then one JSON line of per-kernel numbers (K1-K3 with ``wrapper_launches``,
 phase 7's, ``ssm_wrapper_launches``, phase 8's,
@@ -1701,6 +1726,10 @@ SSM_TRAIN_FLAGS = ["--arch", SSM_ARCH, "--batch", "8", "--seq", "128",
                    "--steps", "2", "--ckpt-every", "1000", "--log-every", "1"]
 #: the parameters of mamba2-1.3b's and recurrentgemma-2b's ``build_defs``
 MAMBA2_PARAMS, RGEMMA_PARAMS = 1_343_532_032, 2_688_089_600
+#: (a), (b) and (f)'s mamba2-1.3b depth (48 published; widths are the
+#: published ones): cut so that the script, phase 13 included, stays well
+#: inside its time limit; (e) trains the whole model
+SSM_LAYERS = 24
 
 
 def tree_bytes(tree) -> int:
@@ -1836,8 +1865,9 @@ def lm_check(phase, cfg, params, batch, prompt, decode, *,
 
 
 def ssm_moe_path(ckpt_dir: Path):
-    """Phase 8: (a) mamba2-1.3b at full width as the wrapper denoiser
-    (numpy seed 0), (b) the same weights as an LM, (c) recurrentgemma-2b
+    """Phase 8: (a) mamba2-1.3b at full width (SSM_LAYERS of its layers)
+    as the wrapper denoiser (numpy seed 0), (b) the same weights as an LM,
+    (c) recurrentgemma-2b
     and (d) qwen2-moe-a2.7b as LMs (weights drawn on the card, seed 0),
     each in float32 and bf16, (e) mamba2-1.3b trained by the driver."""
     import dataclasses
@@ -1855,7 +1885,7 @@ def ssm_moe_path(ckpt_dir: Path):
     torch.backends.cudnn.allow_tf32 = False
     out = {}
     t0 = time.monotonic()
-    cfg = get_arch(SSM_ARCH)
+    cfg = dataclasses.replace(get_arch(SSM_ARCH), num_layers=SSM_LAYERS)
     params = wrapper_init(cfg, WRAP_LATENT, SEED, cuda,
                           out_scale=WRAP_OUT_SCALE)
     torch.cuda.synchronize()
@@ -2595,8 +2625,10 @@ def moe_expert_parallel():
 
 # --- phase 11: the tensor-parallel DiT and the production dry-run ----------
 
-#: (c): two gloo ranks on the one card, serve.main's 16-token geometry
-TP_GLOO_TOKENS = 16
+#: (c): two gloo ranks on the one card, serve.main's 16-token geometry,
+#: DiT-XL's width at half its 28 layers (the depth cut that keeps the
+#: script, phase 13 included, inside its time limit)
+TP_GLOO_TOKENS, TP_GLOO_LAYERS = 16, 14
 
 
 def dit_counts(L: int, data: int) -> dict:
@@ -2833,7 +2865,8 @@ def tp_on_gloo():
     """Phase 11 (c): two processes on the one card, a gloo group
     (``init_distributed("cpu")``: gloo takes the CUDA tensors of every
     collective the TP DiT issues), ``debug`` with data 1 x model 2, each
-    rank computing its 8 heads' columns of DiT-XL (full width and depth):
+    rank computing its 8 heads' columns of DiT-XL (full width,
+    TP_GLOO_LAYERS of its layers):
     eps and ``run_batch`` against the host placement in each rank,
     float32 (TF32 off)."""
     import os
@@ -2879,6 +2912,8 @@ def tp_on_gloo():
 
 def tp_gloo_rank(rank: int, work: Path) -> None:
     """One rank of phase 11 (c) (``chip_smoke.py --tp-gloo-rank R DIR``)."""
+    import dataclasses
+
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2897,7 +2932,7 @@ def tp_gloo_rank(rank: int, work: Path) -> None:
     # gloo groups; the tensors live on the card
     plc = Placement.for_mesh(make_mesh("debug", data_parallel=1,
                                        model_parallel=2, device_type="cpu"))
-    cfg = get_arch("dit-xl")
+    cfg = dataclasses.replace(get_arch("dit-xl"), num_layers=TP_GLOO_LAYERS)
     params = init_on_device(dit.dit_defs(cfg), SEED, cuda)
     gen = torch.Generator(device=cuda).manual_seed(SEED + 1)
     for name in ADA_ZERO:
@@ -2941,8 +2976,8 @@ def tp_gloo_rank(rank: int, work: Path) -> None:
 #: prefill batch x tokens and decode steps of (a) and (b)
 TP_LM_BATCH, TP_LM_PROMPT, TP_LM_DECODE = 2, 512, 8
 #: (b)'s models on two gloo ranks: arch -> layers (the depth cut; widths
-#: are the published ones)
-TP_LM_ARCHS = {"qwen3-0.6b": 28, "recurrentgemma-2b": 3, "mamba2-1.3b": 2,
+#: are the published ones; qwen3-0.6b at half its 28 since phase 13)
+TP_LM_ARCHS = {"qwen3-0.6b": 14, "recurrentgemma-2b": 3, "mamba2-1.3b": 2,
                "qwen2-moe-a2.7b": 2}
 
 
@@ -3100,9 +3135,9 @@ def lm_tensor_parallel_path():
     bit the host placement's, with equal iters, nfe, polls and K1-K3
     launches; ms host / TP.  (b) two gloo ranks on the one card, model 2
     (:func:`tp_lm_on_gloo`).  (c) the dry-run's LM prefill and decode
-    cells on pod and multi-pod (modeled, :func:`lm_production_dryrun`),
-    after (b): it runs on the host's cores, and no timing runs beside
-    it."""
+    cells on pod and multi-pod (modeled) runs last, beside phase 13 (c)
+    (:func:`production_dryruns`): it runs on the host's cores, and no
+    timing runs beside it."""
     import shutil
     import tempfile
 
@@ -3181,7 +3216,6 @@ def lm_tensor_parallel_path():
         shutil.rmtree(rdv, ignore_errors=True)
     free_card()
     out["gloo"] = tp_lm_on_gloo()
-    out["dryrun"] = lm_production_dryrun()
     return out
 
 
@@ -3292,60 +3326,524 @@ def tp_lm_gloo_rank(rank: int, work: Path) -> None:
     dist.destroy_process_group()
 
 
-def lm_production_dryrun():
-    """Phase 12 (c): runs ``python -m repro_torch.launch.dryrun --all
-    --mesh both`` in a subprocess (every LM prefill and decode cell on pod
-    (256 ranks) and multi-pod (512) at full width in fake worlds, rank 0's
-    tensor-parallel program, modeled), waits for it and prints one record
-    a cell."""
+# --- phase 13: the tensor-parallel train step over (data, model) -----------
+
+#: (a)'s and (b)'s steps, and the microbatches of every step
+TP_TRAIN_STEPS_A, TP_TRAIN_STEPS_B, TP_TRAIN_GA = 3, 2, 2
+#: the DiT's batch x latent tokens (phase 6's) and an LM's batch x tokens
+#: (phase 7's train batch)
+TP_TRAIN_DIT, TP_TRAIN_LM = (16, 16), (8, 128)
+#: (b)'s models on two gloo ranks: arch -> layers (the depth cut; widths
+#: are the published ones)
+TP_TRAIN_ARCHS = {"dit-xl": 4, "qwen3-0.6b": 2, "mamba2-1.3b": 2,
+                  "recurrentgemma-2b": 3, "qwen2-moe-a2.7b": 2}
+#: the adaLN leaves, held at 5e-5 in (b) (tests/test_torch_train.py)
+ADA_LEAVES = ("ada", "final_ada")
+#: (b)'s gradients are held within this fraction of their leaf's largest
+#: gradient entry; an element whose first gradient is smaller has a
+#: rounding sign, and Adam's first steps move it by about lr x that sign
+GRAD_RESOLUTION = 1e-5
+#: the LM leaves initialized to zeros or ones, moved off their inits
+#: (tests/test_torch_tp_lm.py): a zero leaf whose gradient is 0 (a key
+#: bias under softmax) takes Adam steps of its gradient's rounding noise
+CONSTANT_LEAVES = ("bq", "bk", "bv", "scale", "A_log", "dt_bias", "D",
+                   "b_a", "b_i")
+
+
+def tp_train_weights(cfg, device):
+    """Weights drawn on ``device`` from ``SEED``; the DiT's adaLN-zero
+    leaves and ``out_proj`` N(0, ADA_SCALE^2), so that every block's
+    gradient is live at the first step, and an LM's constant leaves plus
+    N(0, 0.1^2)."""
+    import torch
+
+    from repro_torch.diffusion import dit
+    from repro_torch.models import backbone as B
+    from repro_torch.models.pdefs import get_path, init_on_device, walk
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    if not cfg.is_diffusion:
+        defs = B.build_defs(cfg)
+        params = init_on_device(defs, SEED, device, torch.float32)
+        for path, _ in walk(defs):
+            if path[-1] in CONSTANT_LEAVES:
+                leaf = get_path(params, path)
+                leaf.add_(torch.randn(leaf.shape, generator=gen,
+                                      device=device), alpha=0.1)
+        return params
+    params = init_on_device(dit.dit_defs(cfg), SEED, device, torch.float32)
+    for leaf in (params["blocks"]["ada"], params["final_ada"],
+                 params["out_proj"]):
+        leaf.normal_(0.0, ADA_SCALE, generator=gen)
+    return params
+
+
+def tp_train_batches(cfg, steps: int, device) -> list:
+    """``steps`` global train batches drawn on ``device`` from ``SEED``
+    (the same on every rank)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    out = []
+    for _ in range(steps):
+        if cfg.is_diffusion:
+            b, n = TP_TRAIN_DIT
+            shape = (b, n, cfg.latent_dim)
+            out.append({
+                "latents": torch.randn(shape, generator=gen, device=device),
+                "noise": torch.randn(shape, generator=gen, device=device),
+                "t": torch.randint(0, 1000, (b,), generator=gen,
+                                   device=device, dtype=torch.int32),
+                "labels": torch.randint(0, cfg.num_classes, (b,),
+                                        generator=gen, device=device,
+                                        dtype=torch.int32)})
+        else:
+            b, s = TP_TRAIN_LM
+            out.append({k: torch.randint(0, cfg.vocab_size, (b, s),
+                                         generator=gen, device=device)
+                        for k in ("inputs", "labels")})
+    return out
+
+
+def tp_train_formula(cfg, model: int, data: int) -> dict:
+    from repro_torch.diffusion import dit
+    from repro_torch.models import backbone as B
+
+    if cfg.is_diffusion:
+        return dit.tp_train_collectives(cfg, model, data, TP_TRAIN_GA)
+    return B.tp_train_collectives(cfg, model, data, TP_TRAIN_LM[1],
+                                  TP_TRAIN_GA)
+
+
+def tp_train_steps(cfg, params, batches, *, mesh=None, events=True) -> dict:
+    """``launch.steps.make_train_step(cfg, grad_accum=TP_TRAIN_GA)`` over
+    ``batches`` on ``params`` (the whole tree), or with ``mesh`` on its
+    ``ShardedParams`` (the rank's rows of each batch, ``local_batch``):
+    each step's loss, grad norm, collectives and ms (CUDA events, or host
+    wall after a synchronize where gloo blocks the host), and the card's
+    allocation peak above what was live before the step."""
+    import torch
+
+    from repro_torch import comm
+    from repro_torch.diffusion import dit
+    from repro_torch.launch import steps as S
+    from repro_torch.models import backbone as B
+    from repro_torch.models.shardctx import ShardedParams
+    from repro_torch.optim import adamw_init
+
+    if mesh is not None:
+        defs = dit.dit_defs(cfg) if cfg.is_diffusion else B.build_defs(cfg)
+        params = ShardedParams.build(params, defs, mesh)
+    opt = adamw_init(params.local if mesh is not None else params)
+    step = S.make_train_step(cfg, grad_accum=TP_TRAIN_GA)
+    kinds = ("all-gather", "all-reduce", "reduce-scatter")
+    out = {"loss": [], "grad_norm": [], "counts": [], "ms": [], "peak": []}
+    for i, batch in enumerate(batches):
+        if mesh is not None:
+            batch = S.local_batch(batch, mesh, TP_TRAIN_GA)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        comm.reset()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.monotonic()
+        start.record()
+        params, opt, m = step(params, opt, batch,
+                              torch.tensor(i, dtype=torch.int32,
+                                           device=batch[next(iter(batch))]
+                                           .device))
+        end.record()
+        torch.cuda.synchronize()
+        out["ms"].append(start.elapsed_time(end) if events
+                         else (time.monotonic() - t0) * 1e3)
+        out["peak"].append(torch.cuda.max_memory_allocated() - base)
+        out["counts"].append({k: comm.counts[k] for k in kinds})
+        out["loss"].append(m["loss"].item())
+        out["grad_norm"].append(m["grad_norm"].item())
+        out["lr_sum"] = out.get("lr_sum", 0.0) + m["lr"].item()
+    del opt
+    out["params"] = params
+    return out
+
+
+def dryrun_train_peak(cfg, batch) -> dict:
+    """The dry-run's memory count (``launch.dryrun._memory``: arguments +
+    temporaries on ``meta``) of the host train step over ``batch``'s
+    shapes, float32: what the TP step at one rank holds too."""
+    import torch
+
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import steps as S
+
+    meta = torch.device("meta")
+    params, opt = S.abstract_model_state(cfg, dtype=torch.float32,
+                                         device=meta)
+    args = (params, opt, {k: torch.empty(v.shape, dtype=v.dtype, device=meta)
+                          for k, v in batch.items()},
+            torch.zeros((), dtype=torch.int32, device=meta))
+    with torch.enable_grad():
+        return D._memory(S.make_train_step(cfg, grad_accum=TP_TRAIN_GA),
+                         args)
+
+
+def tp_train_path():
+    """Phase 13: the tensor-parallel train step (``launch.steps.
+    make_train_step`` on a rank's ``ShardedParams``).  (a) a world of one
+    over NCCL on a (1, 1) ``debug`` mesh, float32 with TF32 off and
+    deterministic algorithms (the index backward of the DiT's class
+    embedding and of the LM's token embedding otherwise adds with atomics,
+    in another order a run): DiT-XL (28 layers, batch 16 x 16 tokens) and
+    qwen3-0.6b (28 layers, batch 8 x 128) at full width and depth, 3
+    steps of grad_accum 2 each, the host step against the TP step:
+    losses, grad norms and every param leaf bit for bit, collectives a
+    step by the formula, step ms host / TP (CUDA events), the TP step's
+    allocation peak against the dry-run's count of the same step; no
+    kernel of the port launched.  (b) two gloo ranks on the one card,
+    model 2 (:func:`tp_train_on_gloo`).  (c) the dry-run's train_4k cells
+    of dit-xl and qwen3-0.6b on pod and multi-pod (modeled) runs after
+    (b), beside phase 12 (c) (:func:`production_dryruns`)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.tree import leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda = torch.device("cuda")
+    rdv = tempfile.mkdtemp(prefix="chip_smoke_rdv_")
+    backend = init_distributed("cuda", world_size=1, rank=0,
+                               init_method=f"file://{rdv}/store",
+                               timeout_s=300)
+    check(backend == "nccl", f"phase 13: backend {backend}")
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        mesh = make_mesh("debug", data_parallel=1, model_parallel=1,
+                         device_type="cuda")
+        for arch in ("dit-xl", "qwen3-0.6b"):
+            cfg = get_arch(arch)
+            batches = tp_train_batches(cfg, TP_TRAIN_STEPS_A, cuda)
+            reset_all_launches()
+            host = tp_train_steps(cfg, tp_train_weights(cfg, cuda), batches)
+            free_card()
+            tp = tp_train_steps(cfg, tp_train_weights(cfg, cuda), batches,
+                                mesh=mesh)
+            launches = {k: v for k, v in all_launches().items() if v}
+            same = [torch.equal(a, b) for a, b in zip(
+                leaves(tp["params"].local), leaves(host["params"]))]
+            want = tp_train_formula(cfg, 1, 1)
+            mem = dryrun_train_peak(cfg, batches[0])
+            unit = "batch 16 x 16 tokens" if cfg.is_diffusion else \
+                "batch 8 x 128"
+            print(f"phase 13 (a) {arch} ({cfg.num_layers} layers, float32, "
+                  f"{unit}, grad_accum {TP_TRAIN_GA}) on the (1, 1) mesh "
+                  f"over NCCL: losses host {host['loss']} / TP "
+                  f"{tp['loss']}, grad norms {host['grad_norm']} / "
+                  f"{tp['grad_norm']}, {sum(same)} of {len(same)} leaves "
+                  f"bit for bit; collectives a step {tp['counts'][0]} "
+                  f"(formula {want}); step ms host {host['ms']} / TP "
+                  f"{tp['ms']} (CUDA events); TP step peak above its "
+                  f"start {tp['peak']} B, dry-run temporaries "
+                  f"{mem['temp_bytes']} B (arguments {mem['argument_bytes']}"
+                  f" B); port kernels launched {launches}")
+            check(host["loss"] == tp["loss"]
+                  and host["grad_norm"] == tp["grad_norm"] and all(same),
+                  f"phase 13 (a) {arch}: the TP step is not the host's")
+            check(all(c == want for c in tp["counts"]),
+                  f"phase 13 (a) {arch}: collectives {tp['counts']}")
+            check(not launches, f"phase 13 (a): launches {launches}")
+            out[arch] = dict(losses=tp["loss"], ms=[host["ms"], tp["ms"]],
+                             counts=tp["counts"][0], peak=tp["peak"],
+                             dryrun=mem)
+            del host, tp
+            free_card()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+        shutil.rmtree(rdv, ignore_errors=True)
+    free_card()
+    out["gloo"] = tp_train_on_gloo()
+    return out
+
+
+def tp_train_on_gloo():
+    """Phase 13 (b): two processes on the one card in a gloo group
+    (``chip_smoke.py --tp-train-gloo-rank R DIR``), ``debug`` with data 1
+    x model 2, float32 (deterministic algorithms, as (a)), published
+    widths at TP_TRAIN_ARCHS' depths: 2 train steps of grad_accum 2 on
+    the rank's blocks against the host step in each rank (run one rank at
+    a time): losses and grad norms within 1e-5 relative, each block
+    within 1e-5 of its leaf's largest entry (5e-5 for the adaLN leaves),
+    the first batch's gradients of each block within 1e-5 of its leaf's
+    largest gradient entry, collectives a step by the formula; step ms
+    host / TP (host wall).  An element whose first host gradient is under
+    ``GRAD_RESOLUTION`` of its leaf's largest has a rounding sign (the
+    gradient check cannot pin it), and Adam's first steps move it by about
+    lr x that sign: such elements are held within 2 x the steps' summed
+    learning rates instead, and counted."""
+    import os
+    import shutil
+    import tempfile
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_train_"))
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-train-gloo-rank",
+         str(r), str(work)], cwd=ROOT, env=dict(os.environ),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=900)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    check(all(p.returncode == 0 for p in procs),
+          f"phase 13 (b): a rank failed: {[log[-3000:] for log in logs]}")
+    outs = [json.loads((work / f"rank{r}.json").read_text())
+            for r in range(2)]
+    shutil.rmtree(work, ignore_errors=True)
+    for r, o in enumerate(outs):
+        for arch, m in o.items():
+            worst = max(m["params"].items(), key=lambda kv: kv[1])
+            gworst = max(m["grads"].items(), key=lambda kv: kv[1])
+            uworst = max(m["unresolved"].items(), key=lambda kv: kv[1])
+            print(f"phase 13 (b) gloo rank {r} of 2, model 2, {arch} "
+                  f"({m['layers']} layers, float32): losses rel err "
+                  f"{m['loss']}, grad norms {m['grad_norm']}; first-step "
+                  f"gradients' largest block err {gworst[1]} ({gworst[0]})"
+                  f" of the leaf's largest gradient entry; params' largest "
+                  f"block err {worst[1]} ({worst[0]}) of the leaf's "
+                  f"largest entry where the first gradient is resolved; "
+                  f"{m['n_unresolved']} elements whose first gradient is "
+                  f"under {GRAD_RESOLUTION} of their leaf's largest: "
+                  f"largest |diff| {uworst[1]} ({uworst[0]}) against 2 x "
+                  f"the steps' lr {2 * m['lr_sum']}; the largest diff of "
+                  f"all at {m['worst']}; collectives a step {m['counts']} "
+                  f"(formula {m['want']}); step ms host {m['ms'][0]} / TP "
+                  f"{m['ms'][1]} (host wall)")
+            bad = {k: e for k, e in m["params"].items()
+                   if e >= (5e-5 if k.split("/")[-1] in ADA_LEAVES
+                            else 1e-5)}
+            check(max(m["loss"]) < 1e-5 and max(m["grad_norm"]) < 1e-5
+                  and gworst[1] < GRAD_RESOLUTION and not bad
+                  and uworst[1] <= 2 * m["lr_sum"] and m["counts_ok"],
+                  f"phase 13 (b) {arch}: {m['loss']} {m['grad_norm']} "
+                  f"{gworst} {bad} {uworst} {m['counts']}")
+    print(f"phase 13 (b) in {time.monotonic() - t0} s")
+    return outs
+
+
+def tp_train_gloo_rank(rank: int, work: Path) -> None:
+    """One rank of phase 13 (b) (``chip_smoke.py --tp-train-gloo-rank R
+    DIR``).  The host
+    gradients of the first batch and the host steps run one rank at a
+    time, and each keeps only the rank's blocks of them."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.diffusion import dit
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.models import backbone as B
+    from repro_torch.models import pdefs
+    from repro_torch.models.shardctx import ShardedParams
+    from repro_torch.tree import flatten_with_paths, path_name
+
+    cuda = torch.device("cuda")
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # as (a): the MoE dispatch's and an embedding's index backward add
+    # with atomics otherwise, in another order a run
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    init_distributed("cpu", world_size=2, rank=rank,
+                     init_method=f"file://{work}/store", timeout_s=300)
+    # gloo groups; the tensors live on the card
+    mesh = make_mesh("debug", data_parallel=1, model_parallel=2,
+                     device_type="cpu")
+    res = {}
+    for arch, layers in TP_TRAIN_ARCHS.items():
+        cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
+        defs = dit.dit_defs(cfg) if cfg.is_diffusion else B.build_defs(cfg)
+        specs = {path_name(p): pdefs.resolve_spec(spec, mesh)
+                 for p, spec in pdefs.walk(defs)}
+        layouts = {path_name(p): spec.layout for p, spec in pdefs.walk(defs)}
+        batches = tp_train_batches(cfg, TP_TRAIN_STEPS_B, cuda)
+
+        def blocks(tree):
+            """(this rank's block, the whole leaf's largest |entry|) of
+            every leaf."""
+            return {path_name(p): (pdefs.local_block(
+                x, specs[path_name(p)], mesh, layouts[path_name(p)]).clone(),
+                float(x.abs().max())) for p, x in flatten_with_paths(tree)}
+
+        def errs(tree, want, resolved=None):
+            """leaf -> (largest |diff| over the whole leaf's largest
+            |entry|, where it is); with ``resolved`` (leaf -> a bool
+            mask) only over the masked elements.  float32 leaves: the
+            difference of two close values is exact."""
+            out = {}
+            for p, x in flatten_with_paths(tree):
+                block, top = want[path_name(p)]
+                diff = (x - block).abs()
+                if resolved is not None:
+                    diff = diff.where(resolved[path_name(p)], 0.0)
+                out[path_name(p)] = (float(diff.max()) / max(top, 1e-30),
+                                     int(diff.argmax()))
+                del diff
+            return out
+
+        host_grads = host = None
+        for r in range(2):          # one host run at a time on the card
+            if r == rank:
+                host_grads = blocks(S.make_grads_fn(cfg, TP_TRAIN_GA)(
+                    tp_train_weights(cfg, cuda), batches[0])[1])
+                free_card()
+                host = tp_train_steps(cfg, tp_train_weights(cfg, cuda),
+                                      batches, events=False)
+                host["params"] = blocks(host["params"])
+                free_card()
+            dist.barrier()
+        tp_params = ShardedParams.build(tp_train_weights(cfg, cuda), defs,
+                                        mesh)
+        tp_grads = S.make_grads_fn(cfg, TP_TRAIN_GA)(
+            tp_params, S.local_batch(batches[0], mesh, TP_TRAIN_GA))[1]
+        grad_errs = errs(tp_grads, host_grads)
+        del tp_params, tp_grads
+        free_card()
+        tp = tp_train_steps(cfg, tp_train_weights(cfg, cuda), batches,
+                            mesh=mesh, events=False)
+        # Adam's first update moves an element by about lr x the sign of
+        # its gradient: where the host's first gradient is within the
+        # gradient check's resolution of 0 (under GRAD_RESOLUTION of its
+        # leaf's largest), its sign is rounding, and so is its step
+        resolved = {k: g.abs() >= GRAD_RESOLUTION * top
+                    for k, (g, top) in host_grads.items()}
+        param_errs = errs(tp["params"].local, host["params"], resolved)
+        unresolved = errs(tp["params"].local, host["params"],
+                          {k: ~m for k, m in resolved.items()})
+        # the element of the largest error over all elements: its values
+        # and its first-step gradient
+        every = errs(tp["params"].local, host["params"])
+        leaf = max(every, key=lambda k: every[k][0])
+        at = every[leaf][1]
+        tp_leaf = {path_name(p): x for p, x in
+                   flatten_with_paths(tp["params"].local)}[leaf]
+        worst = dict(leaf=leaf, index=at, err=every[leaf][0],
+                     tp=float(tp_leaf.reshape(-1)[at]),
+                     host=float(host["params"][leaf][0].reshape(-1)[at]),
+                     host_grad=float(host_grads[leaf][0].reshape(-1)[at]),
+                     grad_top=host_grads[leaf][1])
+        want = tp_train_formula(cfg, 2, 1)
+        res[arch] = dict(
+            layers=layers, params={k: e for k, (e, _) in param_errs.items()},
+            # absolute: against 2 x the steps' learning rates
+            unresolved={k: e * host["params"][k][1]
+                        for k, (e, _) in unresolved.items()},
+            n_unresolved=int(sum(int((~m).sum())
+                                 for m in resolved.values())),
+            lr_sum=tp["lr_sum"],
+            grads={k: e for k, (e, _) in grad_errs.items()}, worst=worst,
+            counts=tp["counts"][0], want=want,
+            counts_ok=all(c == want for c in tp["counts"]),
+            loss=[abs(a - b) / abs(b) for a, b in zip(tp["loss"],
+                                                      host["loss"])],
+            grad_norm=[abs(a - b) / abs(b) for a, b in zip(
+                tp["grad_norm"], host["grad_norm"])],
+            ms=[host["ms"], tp["ms"]])
+        del host, tp, host_grads
+        free_card()
+    (work / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def start_dryrun(argv, out_dir: Path):
+    """``python -m repro_torch.launch.dryrun *argv --mesh both --out
+    out_dir`` started in a session of its own (its per-mesh processes
+    too)."""
+    import os
+
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *argv, "--mesh",
+         "both", "--out", str(out_dir)], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+
+
+def dryrun_records(proc, out_dir: Path, phase: str, t0: float) -> list:
+    """Waits for a :func:`start_dryrun` process (and kills its session),
+    prints one modeled record a cell and returns the records."""
     import os
     import shutil
     import signal
 
-    out_dir = ROOT / "build" / "chip_smoke_dryrun_lm"
-    t0 = time.monotonic()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-         "--mesh", "both", "--out", str(out_dir)], cwd=ROOT,
-        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
-        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
-        start_new_session=True)
     try:
         _, err = proc.communicate(timeout=900)
     finally:
-        # the dry-run's own per-mesh processes too
         with contextlib.suppress(ProcessLookupError):
             os.killpg(proc.pid, signal.SIGKILL)
-    check(proc.returncode == 0, f"phase 12 (c): dry-run failed: {err[-3000:]}")
-    recs = {}
+    check(proc.returncode == 0, f"{phase}: dry-run failed: {err[-3000:]}")
+    recs = []
     for path in sorted(out_dir.glob("*.json")):
         rec = json.loads(path.read_text())
-        if rec["shape"] in ("train_4k", "parataa_serve"):
-            continue
         key = f"{rec['arch']} x {rec['shape']} [{rec['mesh']}]"
         if rec["status"] == "skipped":
-            print(f"phase 12 (c) {key}: skipped ({rec['reason']})")
+            print(f"{phase} {key}: skipped ({rec['reason']})")
             continue
-        print(f"phase 12 (c) {key} (modeled, rank 0 of {rec['chips']}): "
-              f"per chip {rec['flops_per_chip']} flop "
-              f"({rec['flops_by_dtype']}), {rec['bytes_per_chip']} B, peak "
-              f"{rec['peak_bytes']} B (fits_hbm {rec['fits_hbm']}); "
-              f"collectives {rec['collective_breakdown']} B in "
-              f"{rec['collective_counts']} calls, by link "
-              f"{rec['collective_by_link']}; compute {rec['compute_s']} s "
-              f"(TF32 {rec['compute_s_tf32']}), memory {rec['memory_s']} s, "
-              f"collective {rec['collective_s']} s -> {rec['dominant']}")
+        print(f"{phase} {key} (modeled, rank 0 of {rec.get('chips')}): "
+              f"per chip {rec.get('flops_per_chip')} flop "
+              f"({rec.get('flops_by_dtype')}), {rec.get('bytes_per_chip')} B,"
+              f" peak {rec.get('peak_bytes')} B (fits_hbm "
+              f"{rec.get('fits_hbm')}); collectives "
+              f"{rec.get('collective_breakdown')} B in "
+              f"{rec.get('collective_counts')} calls, by link "
+              f"{rec.get('collective_by_link')}; compute "
+              f"{rec.get('compute_s')} s (TF32 {rec.get('compute_s_tf32')}),"
+              f" memory {rec.get('memory_s')} s, collective "
+              f"{rec.get('collective_s')} s -> {rec.get('dominant')}")
         check(rec["status"] == "ok" and rec["flops_per_chip"] > 0,
-              f"phase 12 (c): {key} {rec.get('status')} "
-              f"{rec.get('error')}")
-        recs[key] = {k: rec[k] for k in (
-            "chips", "flops_per_chip", "bytes_per_chip", "peak_bytes",
-            "fits_hbm", "collective_breakdown", "collective_by_link",
-            "compute_s", "memory_s", "collective_s", "dominant")}
-    check(len(recs) > 0, "phase 12 (c): no LM record")
+              f"{phase}: {key} {rec.get('status')} {rec.get('error')}")
+        recs.append(rec)
     shutil.rmtree(out_dir, ignore_errors=True)
-    print(f"phase 12 (c) {len(recs)} cells in {time.monotonic() - t0} s")
+    print(f"{phase} {len(recs)} cells in {time.monotonic() - t0} s")
     return recs
+
+
+def production_dryruns() -> dict:
+    """Phases 12 (c) and 13 (c), last and side by side (no timing runs
+    beside them; each mesh's count is one process on the host's cores):
+    ``python -m repro_torch.launch.dryrun --arch qwen3-0.6b,mamba2-1.3b
+    --shape prefill_32k,decode_32k --mesh both`` (LM prefill and decode
+    cells on pod (256) and multi-pod (512) at full width, rank 0's
+    tensor-parallel program in fake worlds) and ``--arch
+    dit-xl,qwen3-0.6b --shape train_4k --mesh both`` (rank 0's
+    tensor-parallel train step), modeled, one record printed a cell.
+    The CPU's ``--all --mesh both`` writes every other cell's record
+    (the same count; PERF.md §6): the full set took ~125 s here alone."""
+    t0 = time.monotonic()
+    lm_dir = ROOT / "build" / "chip_smoke_dryrun_lm"
+    train_dir = ROOT / "build" / "chip_smoke_dryrun_train"
+    procs = (start_dryrun(["--arch", "qwen3-0.6b,mamba2-1.3b", "--shape",
+                           "prefill_32k,decode_32k"], lm_dir),
+             start_dryrun(["--arch", "dit-xl,qwen3-0.6b", "--shape",
+                           "train_4k"], train_dir))
+    lm = dryrun_records(procs[0], lm_dir, "phase 12 (c)", t0)
+    check(len(lm) == 8, f"phase 12 (c): {len(lm)} records")
+    train = dryrun_records(procs[1], train_dir, "phase 13 (c)", t0)
+    check(len(train) == 4, f"phase 13 (c): {len(train)} records")
+    return {"lm": lm, "train": train}
 
 
 def model_cases():
@@ -3804,6 +4302,11 @@ def main() -> int:
         mode = "fused" if name == "taa_round" else "staged"
         next(r for r in rows if r["name"] == name)["tp_lm_launches"] = \
             tp_lm[mode]["launches"][name]
+    t13 = time.monotonic()
+    free_card()
+    tp_train_path()
+    t14 = time.monotonic()
+    production_dryruns()
     print(f"phase seconds: build {t1 - t0}, taa kernels {t2 - t1}, DiT-XL "
           f"serving and TF32 {t3 - t2}, model kernels {t4 - t3}, DiT-XL "
           f"stepwise serving {t5 - t4}, --use-pallas {t5b - t5}, DiT-XL "
@@ -3811,7 +4314,9 @@ def main() -> int:
           f"{t7 - t6}, mamba2/recurrentgemma/MoE {t8 - t7}, dry-run against "
           f"the card {t9 - t8}, examples {t10 - t9}, placement on a world "
           f"of one {t11 - t10}, the tensor-parallel DiT and the production "
-          f"dry-run {t12 - t11}, the tensor-parallel LMs {time.monotonic() - t12}")
+          f"dry-run {t12 - t11}, the tensor-parallel LMs {t13 - t12}, the "
+          f"tensor-parallel train step {t14 - t13}, the production "
+          f"dry-runs {time.monotonic() - t14}")
     # the card again, so that the end of a long log still names it
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": rows}))
@@ -3827,5 +4332,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--tp-lm-gloo-rank"]:
         tp_lm_gloo_rank(int(sys.argv[2]), Path(sys.argv[3]))
+        sys.exit(0)
+    if sys.argv[1:2] == ["--tp-train-gloo-rank"]:
+        tp_train_gloo_rank(int(sys.argv[2]), Path(sys.argv[3]))
         sys.exit(0)
     sys.exit(main())

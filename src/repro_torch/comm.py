@@ -17,6 +17,29 @@ Each call is a plain ``torch.distributed`` call on a process group: NCCL
 on the card, gloo on the CPU.  An all-gather is exact data movement (no
 arithmetic), which is what keeps a sharded solve bit for bit equal to the
 unsharded one.
+
+The tensor-parallel backward needs each collective's adjoint, and the same
+forward collective needs different ones at different call sites (what the
+downstream gradient is: a rank's partial, or the whole gradient on every
+rank).  So the differentiable forms below name their backward, and count
+it (``torch.distributed.nn.functional`` has one fixed backward per
+collective: its all-reduce's all-reduces the gradient, which multiplies a
+row-parallel output's gradient by the group size):
+
+==========================  ==========================  ==================
+forward                     downstream gradient         backward
+==========================  ==========================  ==================
+:func:`gather_partial`      each rank's partial         reduce-scatter
+:func:`gather_replicated`   whole on every rank         the rank's block
+:func:`sum_replicated`      whole on every rank         identity
+:func:`partial_grads`       each rank's partial         all-reduce
+:func:`sum_partial`         each rank's partial         all-reduce
+:func:`scatter_sum`         the rank's rows             all-gather
+==========================  ==========================  ==================
+
+(:func:`partial_grads` is Megatron's *f*: a replicated activation entering
+split leaves; its forward moves nothing.)  Without grad each is its plain
+collective, in place where that form was.
 """
 from __future__ import annotations
 
@@ -111,8 +134,7 @@ def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     n = group_size(group)
     _count("reduce-scatter", x, group)
     size = x.shape[dim] // n
-    me = dist.get_group_rank(group, dist.get_rank()) if group is not None \
-        else dist.get_rank()
+    me = group_rank(group)
     if dist.get_backend(group) == "gloo":
         full = x.contiguous().clone()
         dist.all_reduce(full, op=dist.ReduceOp.SUM, group=group)
@@ -122,6 +144,135 @@ def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
                       device=x.device)
     dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=group)
     return out.movedim(0, dim)
+
+
+def group_rank(group) -> int:
+    """This rank's index in ``group`` (its block of a split dim)."""
+    return dist.get_group_rank(group, dist.get_rank()) if group is not None \
+        else dist.get_rank()
+
+
+# --- differentiable forms (the module docstring's table) ---------------------
+
+
+def _grad_on(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _GatherPartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather_cat(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.group, ctx.dim), None, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.size = group, dim, x.shape[dim]
+        return all_gather_cat(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, group_rank(ctx.group) * ctx.size,
+                        ctx.size), None, None
+
+
+class _SumReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _PartialGrads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.group), None
+
+
+class _SumPartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.group), None
+
+
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_cat(g, ctx.group, ctx.dim), None, None
+
+
+def gather_partial(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """:func:`all_gather_cat` whose downstream gradient is each rank's
+    partial: the backward reduce-scatters it (an FSDP gather, the rows of
+    a sequence split entering split leaves, context-parallel keys)."""
+    if _grad_on(x):
+        return _GatherPartial.apply(x, group, dim)
+    return all_gather_cat(x, group, dim)
+
+
+def gather_replicated(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """:func:`all_gather_cat` whose downstream gradient is the whole one on
+    every rank: the backward keeps the rank's block (no collective)."""
+    if _grad_on(x):
+        return _GatherReplicated.apply(x, group, dim)
+    return all_gather_cat(x, group, dim)
+
+
+def sum_replicated(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of partials over ``group``, used alike on every rank: the
+    backward passes the gradient through.  In place without grad."""
+    if _grad_on(x):
+        return _SumReplicated.apply(x, group)
+    return all_reduce_sum_(x, group)
+
+
+def partial_grads(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself (replicated) entering a rank's split computation: the
+    backward all-reduces the partial gradients (nothing moves forward)."""
+    if _grad_on(x):
+        return _PartialGrads.apply(x, group)
+    return x
+
+
+def sum_partial(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of partials over ``group`` that each rank then uses for its
+    own block (a norm's sum of squares over split channels): the backward
+    all-reduces the partial gradients.  In place without grad."""
+    if _grad_on(x):
+        return _SumPartial.apply(x, group)
+    return all_reduce_sum_(x, group)
+
+
+def scatter_sum(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """:func:`reduce_scatter` whose backward all-gathers the rows'
+    gradients."""
+    if _grad_on(x):
+        return _ScatterSum.apply(x, group, dim)
+    return reduce_scatter(x, group, dim)
 
 
 def broadcast_(x: torch.Tensor, src: int, group=None) -> torch.Tensor:

@@ -24,8 +24,18 @@ in one flat all-gather, and those of the top-level leaves in one at the
 start of the call.  A call issues 2L all-reduces and L + 1 all-gathers
 over ``model``, and L + 1 all-gathers over the data axes when they have
 more than one rank (none at one).  At ``model`` = 1 the products are the
-host path's on the same tensors, bit for bit.  The sharded forward is
-inference only.
+host path's on the same tensors, bit for bit.
+
+Under grad the same forward differentiates as GSPMD's would: ``cond`` and
+each block's modulated inputs enter the split heads and MLP through
+``ShardedParams.model_in`` (their backward all-reduces the partial
+gradients over ``model``), the adaLN columns' all-gather keeps the rank's
+columns of the gradient and the partial sums' all-reduce passes it
+through, and a block's data-axis gather reduce-scatters its gradient.
+With ``remat`` each block — its gather included — runs again in the
+backward pass.  :func:`dit_loss` on a mesh is the global batch's mean
+(each rank's rows' mean, averaged over the data axes), and
+:func:`tp_train_collectives` counts a train step's collectives.
 """
 from __future__ import annotations
 
@@ -41,8 +51,7 @@ from repro_torch.device import constant, to_device
 from repro_torch.models.layers import (layernorm_noaffine, mlp,
                                        sincos_positions, sinusoidal_embed)
 from repro_torch.models.pdefs import ParamSpec
-from repro_torch.models.shardctx import ShardedParams
-from repro_torch.tree import leaves
+from repro_torch.models.shardctx import ShardedParams, remat_tp
 
 TEMB_DIM = 256
 
@@ -121,15 +130,7 @@ def dit_apply(params, cfg: ArchConfig, latents, t, y=None, *,
     ``remat`` recomputes each block's activations in the backward pass
     instead of keeping them (the reference's ``jax.checkpoint(block)``)."""
     tp = params if isinstance(params, ShardedParams) else None
-    tree = params
-    if tp is not None:
-        tree = tp.local
-        if torch.is_grad_enabled() and any(
-                x.requires_grad for x in leaves(tree)):
-            raise NotImplementedError(
-                "the tensor-parallel DiT is forward-only: its backward is "
-                "ROADMAP Queue 1 item 3, step 2 (the tensor-parallel "
-                "backward and the DiT's train_4k cell on a mesh)")
+    tree = tp.local if tp is not None else params
 
     def full(blocks):
         return tp.gather(blocks) if tp is not None else blocks
@@ -139,6 +140,9 @@ def dit_apply(params, cfg: ArchConfig, latents, t, y=None, *,
 
     def reduce(path, x):
         return tp.model_sum(path, x) if tp is not None else x
+
+    def split_in(path, x):
+        return tp.model_in(path, x) if tp is not None else x
 
     b, n, _ = latents.shape
     d = cfg.d_model
@@ -153,14 +157,30 @@ def dit_apply(params, cfg: ArchConfig, latents, t, y=None, *,
         y = torch.full((b,), cfg.num_classes, dtype=torch.long,
                        device=x.device)                       # null class
     cond = F.silu(cond + top["y_embed"][y])
+    # every block's adaLN product and the final one read cond through
+    # their split columns: one all-reduce of its gradient for them all
+    cond_ada = split_in("blocks/ada", cond)
+    cond_final = cond_ada if tp is None or tp.sharded("final_ada") == \
+        tp.sharded("blocks/ada") else split_in("final_ada", cond)
 
     def block(p, p_mlp, x):
-        mod = cat("blocks/ada", cond @ p["ada"])
+        mod = cat("blocks/ada", cond_ada @ p["ada"])
         s1, sc1, g1, s2, sc2, g2 = mod.chunk(6, dim=-1)
-        h = _dit_attention(p, _modulate(layernorm_noaffine(x), s1, sc1))
+        h = _dit_attention(p, split_in("blocks/wq", _modulate(
+            layernorm_noaffine(x), s1, sc1)))
         x = x + g1[:, None, :] * reduce("blocks/wo", h)
-        h = mlp(p_mlp, _modulate(layernorm_noaffine(x), s2, sc2), "gelu")
+        h = mlp(p_mlp, split_in("blocks/mlp/wo", _modulate(
+            layernorm_noaffine(x), s2, sc2)), "gelu")
         return x + g2[:, None, :] * reduce("blocks/mlp/wo", h)
+
+    def gathered_block(layer, layer_mlp, x):
+        # a sharded block's embed rows gathered just before it (again in
+        # the backward pass under remat)
+        whole = full({**{f"blocks/{k}": v for k, v in layer.items()},
+                      **{f"blocks/mlp/{k}": v
+                         for k, v in layer_mlp.items()}})
+        return block({k: whole[f"blocks/{k}"] for k in layer},
+                     {k: whole[f"blocks/mlp/{k}"] for k in layer_mlp}, x)
 
     # each stacked (L, ...) leaf split into its layers once: the backward of
     # unbind stacks the layers' grads in one pass, where the backward of
@@ -170,15 +190,15 @@ def dit_apply(params, cfg: ArchConfig, latents, t, y=None, *,
               if k != "mlp"}
     layers_mlp = {k: v.unbind(0) for k, v in tree["blocks"]["mlp"].items()}
     for i in range(cfg.num_layers):
-        # a sharded block's embed rows gathered just before it
-        whole = full({**{f"blocks/{k}": v[i] for k, v in layers.items()},
-                      **{f"blocks/mlp/{k}": v[i]
-                         for k, v in layers_mlp.items()}})
-        p = {k: whole[f"blocks/{k}"] for k in layers}
-        p_mlp = {k: whole[f"blocks/mlp/{k}"] for k in layers_mlp}
-        x = (checkpoint(block, p, p_mlp, x, use_reentrant=False) if remat
-             else block(p, p_mlp, x))
-    sh, sc = cat("final_ada", cond @ top["final_ada"]).chunk(2, dim=-1)
+        p = {k: v[i] for k, v in layers.items()}
+        p_mlp = {k: v[i] for k, v in layers_mlp.items()}
+        if tp is not None:
+            x = remat_tp(remat and torch.is_grad_enabled(), gathered_block,
+                         p, p_mlp, x)
+        else:
+            x = (checkpoint(block, p, p_mlp, x, use_reentrant=False)
+                 if remat else block(p, p_mlp, x))
+    sh, sc = cat("final_ada", cond_final @ top["final_ada"]).chunk(2, dim=-1)
     x = _modulate(layernorm_noaffine(x), sh, sc)
     return x @ top["out_proj"]
 
@@ -186,14 +206,56 @@ def dit_apply(params, cfg: ArchConfig, latents, t, y=None, *,
 def dit_loss(params, cfg: ArchConfig, batch, abar_full):
     """Denoising score-matching MSE in float32.  batch: {"latents": (B,N,L)
     clean, "t": (B,) int train timesteps, "noise": (B,N,L), "labels": (B,)};
-    ``abar_full`` the (n_train,) float32 alpha-bar table on the device."""
+    ``abar_full`` the (n_train,) float32 alpha-bar table on the device.
+    On a rank's ``ShardedParams`` the batch is the rank's rows and the
+    loss the global batch's mean: its rows' mean averaged over the data
+    axes (one all-reduce where they have more than one rank)."""
+    from repro_torch import comm
+
     ab = abar_full[batch["t"].long()][:, None, None].to(torch.float32)
     x_t = torch.sqrt(ab) * batch["latents"] + torch.sqrt(1.0 - ab) \
         * batch["noise"]
     pred = dit_apply(params, cfg, x_t.to(batch["latents"].dtype),
                      batch["t"].to(torch.float32), batch["labels"].long(),
                      remat=True)
-    return torch.mean(torch.square(pred.to(torch.float32) - batch["noise"]))
+    loss = torch.mean(torch.square(pred.to(torch.float32) - batch["noise"]))
+    group = params.data_group() if isinstance(params, ShardedParams) \
+        else None
+    if group is not None and comm.group_size(group) > 1:
+        loss = comm.sum_replicated(loss, group) / comm.group_size(group)
+    return loss
+
+
+def tp_train_collectives(cfg: ArchConfig, model: int, data: int,
+                         grad_accum: int = 1) -> dict:
+    """Collectives of one tensor-parallel train step of the DiT
+    (``launch.steps.make_train_step`` on a rank's ``ShardedParams``;
+    ``dit_loss`` remats every block) whose heads, MLP and adaLN columns
+    divide ``model``, on a float32 tree:
+
+    * a microbatch's forward: the ``dit_apply`` call's (2L all-reduces;
+      L + 1 all-gathers over model; L + 1 over data > 1) and the loss's
+      mean over data > 1 (1 all-reduce);
+    * the recompute of every block in the backward pass: 2 all-reduces
+      and 1 all-gather over model, 1 all-gather over data > 1;
+    * the backward: 2 all-reduces a block (its attention's and MLP's
+      inputs) and 1 of cond (every adaLN product's input); a
+      reduce-scatter over data > 1 for each of the L + 1 gathers;
+    * the step: the global norm's partial sums all-reduced over model > 1
+      and over data > 1 (every leaf is split over the data axes where
+      ``d_model`` divides them, so no gradient is all-reduced over data,
+      and none is partial over model)."""
+    L = cfg.num_layers
+    fwd_ag = (L + 1) + (L + 1) * (data > 1)
+    fwd_ar = 2 * L + (data > 1)
+    rec_ag = L + L * (data > 1)
+    rec_ar = 2 * L
+    bwd_ar = 2 * L + 1
+    bwd_rs = (L + 1) * (data > 1)
+    return {"all-gather": grad_accum * (fwd_ag + rec_ag),
+            "all-reduce": grad_accum * (fwd_ar + rec_ar + bwd_ar)
+            + (model > 1) + (data > 1),
+            "reduce-scatter": grad_accum * bwd_rs}
 
 
 # ---------------------------------------------------------------------------
@@ -231,7 +293,7 @@ def wrapper_apply(params, cfg: ArchConfig, latents, t, *,
     recomputes each layer in the backward pass.  ``params`` may be a
     rank's ``ShardedParams`` of :func:`wrapper_defs` on a mesh: the
     projections' data-axis splits gathered, the backbone tensor-parallel
-    (``models.backbone``; forward only)."""
+    (``models.backbone``)."""
     from repro_torch.models.backbone import (default_positions, seq_split,
                                              trunk)
     from repro_torch.models.shardctx import LayerTP
@@ -253,6 +315,11 @@ def wrapper_apply(params, cfg: ArchConfig, latents, t, *,
     # the backbone tensor-parallel on its blocks: the residual's rows
     # split over model where the arch asks (backbone.seq_split)
     bb = tp.sub("backbone")
-    rows = LayerTP(bb, "", {}, seq_split(cfg, bb, "train", n), n)
-    h, _, _ = trunk(bb, cfg, rows.own_rows(x), pos, mode="train")
-    return rows.rows_in(h) @ top["out_proj"]
+    split = seq_split(cfg, bb, "train", n)
+    rows = LayerTP(tp, "", {}, split, n)
+    if split:                       # each rank's rows: partial gradients
+        for name in ("in_proj", "t_mlp1", "t_mlp2"):
+            rows.mark(name)
+    h, _, _ = trunk(bb, cfg, rows.own_rows(x), pos, mode="train",
+                    remat=remat)
+    return rows.rows_whole(h) @ top["out_proj"]

@@ -13,10 +13,13 @@ no card needed) — the JAX package's ``repro.launch.dryrun``.  ``--mesh``:
   ``model``); every LM prefill and decode cell runs the backbone's
   tensor-parallel forward on rank 0's blocks of the params
   (``steps.abstract_model_state(mesh=)``), of the inputs (its data shard)
-  and of the cache (``steps.abstract_cache(mesh=)``); the train cells
-  wait for the tensor-parallel backward and are written ``"status":
-  "skipped"`` with the ROADMAP item that brings it.  ``both`` runs
-  ``single`` and ``multi`` side by side, each in a process of its own.
+  and of the cache (``steps.abstract_cache(mesh=)``); every train cell
+  (the LMs' and dit-xl's train_4k) runs the tensor-parallel train step on
+  rank 0's blocks and optimizer state and its rows of each microbatch
+  (``steps.make_train_step`` on a ``ShardedParams``: forward, backward,
+  the gradient sync, the mesh's global norm, AdamW).  ``both`` runs
+  ``single`` and ``multi`` side by side, each in a process of its own;
+  ``--arch`` and ``--shape`` take comma-joined lists.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out build/dryrun
     PYTHONPATH=src python -m repro_torch.launch.dryrun --parataa --mesh both
@@ -157,14 +160,17 @@ def _requires_grad(tree, flag: bool):
 # ---------------------------------------------------------------------------
 
 
-def _local_shape(shape: ShapeConfig, mesh) -> ShapeConfig:
+def _local_shape(shape: ShapeConfig, mesh, grad_accum: int = 1
+                 ) -> ShapeConfig:
     """The cell's shape with this rank's share of the batch (its data
-    shard; the whole batch where the data axes do not divide it)."""
+    shard of each of ``grad_accum`` microbatches; the whole batch where
+    the data axes do not divide a microbatch)."""
     if mesh is None:
         return shape
-    from repro_torch.models.pdefs import entry_size, resolve_axis
+    from repro_torch.models.pdefs import entry_size
 
-    parts = entry_size(resolve_axis("embed", shape.global_batch, mesh), mesh)
+    parts = entry_size(S.batch_entry(shape.global_batch, mesh, grad_accum),
+                       mesh)
     return dataclasses.replace(shape,
                                global_batch=shape.global_batch // parts)
 
@@ -173,10 +179,11 @@ def _program(cfg, shape: ShapeConfig, device=META, microbatches=None,
              mesh=None):
     """(step fn, its arguments) of the cell, as the drivers run it; a train
     step over ``microbatches`` of its microbatches (default: all).  On a
-    mesh (prefill and decode): rank 0's blocks of the params, inputs and
-    cache."""
+    mesh: rank 0's blocks of the params (and optimizer state), its rows of
+    the inputs and its cache blocks."""
     kind = shape.kind
-    if mesh is not None:
+    ga = cfg.train_grad_accum
+    if mesh is not None and kind != "train":
         params, _ = S.abstract_model_state(cfg, with_opt=False,
                                            device=device, mesh=mesh)
         inputs = S.input_specs(cfg, _local_shape(shape, mesh), device)
@@ -186,8 +193,9 @@ def _program(cfg, shape: ShapeConfig, device=META, microbatches=None,
                                               cache)
         return S.make_decode_step(cfg), (params, inputs["token"], cache)
     params, opt = S.abstract_model_state(cfg, with_opt=kind == "train",
-                                         device=device)
-    ga = cfg.train_grad_accum
+                                         device=device, mesh=mesh)
+    if mesh is not None:        # the rank's rows of every microbatch
+        shape = _local_shape(shape, mesh, ga)
     if kind == "train" and microbatches and microbatches < ga:
         shape = dataclasses.replace(
             shape, global_batch=shape.global_batch // ga * microbatches)
@@ -203,9 +211,11 @@ def _program(cfg, shape: ShapeConfig, device=META, microbatches=None,
     return S.make_decode_step(cfg), (params, inputs["token"], cache)
 
 
-def _memory(fn, args) -> dict:
+def _memory(fn, args, cost: bool = False):
     """The program's live-storage peak on ``meta``: arguments (what is
-    live before it runs) + temporaries."""
+    live before it runs) + temporaries; with ``cost``, (that, the run's
+    :class:`Cost`) — the cost of a program counted whole."""
+    comm.reset()
     with CostCounter() as counter:
         arg_bytes = counter.track(
             [getattr(a, "local", a) for a in args])
@@ -214,8 +224,9 @@ def _memory(fn, args) -> dict:
         new = counter.track(out)     # outputs made outside the counted ops
     peak = counter.peak
     del out
-    return dict(argument_bytes=arg_bytes, output_bytes=held + new - arg_bytes,
-                temp_bytes=peak - arg_bytes, peak_bytes=peak)
+    mem = dict(argument_bytes=arg_bytes, output_bytes=held + new - arg_bytes,
+               temp_bytes=peak - arg_bytes, peak_bytes=peak)
+    return (mem, Cost.of(counter)) if cost else mem
 
 
 def _scan_unit(cfg):
@@ -239,9 +250,10 @@ def _scan_unit(cfg):
 
 
 def _unit_tp(cfg, kinds, lp, defs, shape: ShapeConfig, mesh, device):
-    """On a mesh: (rank 0's blocks of a scan unit's params, its cache
-    blocks, the unit's apply on them — the layer's data-axis gather
-    included — and the residual's rows on the rank)."""
+    """On a mesh: (the unit's apply on rank 0's blocks of a scan unit's
+    params and cache — the layer's data-axis gather included —, the
+    residual's rows on the rank, the blocks' ``ShardedParams``).  A train
+    unit has no cache."""
     from repro_torch.models.shardctx import (LayerTP, ShardedCache,
                                              ShardedParams)
     from repro_torch.tree import flatten_with_paths, path_name
@@ -255,6 +267,7 @@ def _unit_tp(cfg, kinds, lp, defs, shape: ShapeConfig, mesh, device):
     part = [(path, S._cache_spec_for(path_name(path), tuple(x.shape), mesh))
             for path, x in flatten_with_paths(whole)]
     cache = ShardedCache.zeros(whole, part, mesh, device)
+    local = cache.local if mode != "train" else None
     s_eff = 1 if mode == "decode" else s
     split = B.seq_split(cfg, tp, mode, s_eff)
 
@@ -267,13 +280,13 @@ def _unit_tp(cfg, kinds, lp, defs, shape: ShapeConfig, mesh, device):
         p = tp.gather_tree("", tp.local)
         if cfg.is_hybrid:
             return B._apply_group(cfg, kinds, p, h, pos, mode=mode,
-                                  cache=cache.local, causal=True,
+                                  cache=local, causal=True,
                                   tps=[view(f"l{j}/")
                                        for j in range(len(kinds))])
         return B._apply_layer(cfg, kinds[0], p, h, pos, mode=mode,
-                              cache=cache.local, causal=True, tp=view(""))
+                              cache=local, causal=True, tp=view(""))
     rows = s_eff // tp.model_size if split else s_eff
-    return apply, rows
+    return apply, rows, tp
 
 
 def _layer_cost(cfg, shape: ShapeConfig, device=META, mesh=None):
@@ -281,7 +294,9 @@ def _layer_cost(cfg, shape: ShapeConfig, device=META, mesh=None):
     shapes its loss sum(out) and the grads of its params and input, the
     unit recomputed in the backward pass (the trunk's remat); for prefill
     and decode, the unit over its own cache — on a mesh, rank 0's blocks
-    of both, tensor-parallel.  Returns (Cost, n_units)."""
+    of both, tensor-parallel (a train unit recomputed in the backward
+    pass with its collectives, ``shardctx.remat_tp``).  Returns (Cost,
+    n_units)."""
     from torch.utils.checkpoint import checkpoint
 
     from repro_torch.models.pdefs import leaf_dtype, map_defs
@@ -295,14 +310,28 @@ def _layer_cost(cfg, shape: ShapeConfig, device=META, mesh=None):
         spec.shape, dtype=leaf_dtype(spec, S.PARAM_DTYPE), device=device),
         defs)
     if mesh is not None:
-        apply, rows = _unit_tp(cfg, kinds, lp, defs, shape, mesh, device)
-        b = _local_shape(shape, mesh).global_batch
+        apply, rows, tp = _unit_tp(cfg, kinds, lp, defs, shape, mesh,
+                                   device)
+        ga = cfg.train_grad_accum if shape.kind == "train" else 1
+        b = _local_shape(shape, mesh, ga).global_batch // ga
         s_eff = 1 if shape.kind == "decode" else shape.seq_len
         h = torch.zeros((b, rows, cfg.d_model), dtype=S.PARAM_DTYPE,
                         device=device)
         pos = B.default_positions(cfg, b, s_eff, device)
-        with torch.no_grad():
-            return _counted(apply, h, pos), n_units
+        if shape.kind != "train":
+            with torch.no_grad():
+                return _counted(apply, h, pos), n_units
+        flat = _requires_grad(tp.local, True) + [h.requires_grad_(True)]
+
+        def run_tp():
+            out, _ = B.remat_tp(True, apply, h, pos)
+            return torch.autograd.grad(out.float().sum(), flat,
+                                       allow_unused=True,
+                                       materialize_grads=True)
+        try:
+            return _counted(run_tp), n_units
+        finally:
+            _requires_grad(tp.local, False)
     b, s = shape.global_batch, shape.seq_len
     if shape.kind == "train":
         b //= cfg.train_grad_accum
@@ -332,35 +361,53 @@ def _layer_cost(cfg, shape: ShapeConfig, device=META, mesh=None):
         return _counted(unit_apply, lp, h, pos, cache, shape.kind), n_units
 
 
-def _loss_cost(cfg, shape: ShapeConfig, device=META) -> Cost:
+def _loss_cost(cfg, shape: ShapeConfig, device=META, mesh=None):
     """The loss and the grads of every param at one microbatch — as the
-    train step takes them — for ``cfg`` as given."""
+    train step takes them — for ``cfg`` as given; on a mesh, rank 0's
+    rows and blocks.  Returns (Cost, the paths of the leaves whose
+    gradients the forward marked partial over ``model``)."""
     ga = cfg.train_grad_accum
-    mb = dataclasses.replace(shape, global_batch=shape.global_batch // ga)
-    params, _ = S.abstract_model_state(cfg, with_opt=False, device=device)
+    local = _local_shape(shape, mesh, ga)
+    mb = dataclasses.replace(shape, global_batch=local.global_batch // ga)
+    params, _ = S.abstract_model_state(cfg, with_opt=False, device=device,
+                                       mesh=mesh)
+    tree = params.local if mesh is not None else params
     batch = S.input_specs(cfg, mb, device)
     loss_fn = S.make_loss_fn(cfg)
-    flat = _requires_grad(params, True)
+    flat = _requires_grad(tree, True)
     try:
-        return _counted(lambda: torch.autograd.grad(
+        cost = _counted(lambda: torch.autograd.grad(
             loss_fn(params, batch), flat, allow_unused=True,
             materialize_grads=True))
     finally:
-        _requires_grad(params, False)
+        _requires_grad(tree, False)
+    return cost, getattr(params, "partial", set())
 
 
-def _update_cost(cfg, device=META):
+def _update_cost(cfg, device=META, mesh=None, partial=()):
     """(AdamW update, float32 grad accumulation over the microbatches),
-    each over the whole param tree."""
-    params, opt = S.abstract_model_state(cfg, device=device)
+    each over the whole param tree — on a mesh over rank 0's blocks, the
+    update with the gradient sync (the leaves ``partial`` over model among
+    them) and the mesh's global norm."""
+    params, opt = S.abstract_model_state(cfg, device=device, mesh=mesh)
+    tree = params.local if mesh is not None else params
     grads = [torch.empty(p.shape, dtype=p.dtype, device=device)
-             for p in leaves(params)]
+             for p in leaves(tree)]
     f32 = [g.float() for g in grads]
     step = torch.zeros((), dtype=torch.int32, device=device)
     ocfg = AdamWConfig()
-    opt_cost = _counted(lambda: adamw_update(
-        f32, opt, params, ocfg, lr_schedule(step, base_lr=ocfg.lr,
-                                            total_steps=10_000)))
+    lr = lr_schedule(step, base_lr=ocfg.lr, total_steps=10_000)
+    if mesh is None:
+        opt_cost = _counted(lambda: adamw_update(f32, opt, params, ocfg, lr))
+    else:
+        params.partial.update(partial)
+
+        def update():
+            params.sync_grads(f32)
+            adamw_update(f32, opt, tree, ocfg, lr,
+                         counted=params.norm_counted(),
+                         groups=params.norm_groups())
+        opt_cost = _counted(update)
     ga = cfg.train_grad_accum
 
     def accumulate():
@@ -376,15 +423,16 @@ def _update_cost(cfg, device=META):
 def cell_cost(cfg, shape: ShapeConfig, device=META, mesh=None):
     """(Cost, n_units): the cell's cost assembled from a standalone scan
     unit (module docstring); the DiT's counted whole.  On a mesh: rank
-    0's (prefill and decode)."""
+    0's."""
     if cfg.is_diffusion:
-        fn, args = _program(cfg, shape, device)
+        fn, args = _program(cfg, shape, device, mesh=mesh)
         return _counted(fn, *args), 0
     unit, n_units = _layer_cost(cfg, shape, device, mesh)
     _, _, _, one = _scan_unit(cfg)
     if shape.kind == "train":
-        loss = _loss_cost(one, shape, device) - unit
-        opt, acc = _update_cost(cfg, device)
+        loss, partial = _loss_cost(one, shape, device, mesh)
+        loss = loss - unit
+        opt, acc = _update_cost(cfg, device, mesh, partial)
         ga = cfg.train_grad_accum
         return opt + acc + (loss + unit * n_units) * ga, n_units
     fn, args = _program(one, shape, device, mesh=mesh)
@@ -423,9 +471,8 @@ def run_cell(arch_name: str, shape: Union[str, ShapeConfig], *,
     ``configs.base.SHAPES`` or a ``ShapeConfig``; ``cfg`` overrides the
     registry's config (a reduced one in the tests).  On a production mesh
     (``mesh_label`` "single" or "multi", ``mesh`` its ``DeviceMesh`` in a
-    ``fake`` world) an LM prefill or decode cell is rank 0's
-    tensor-parallel program (:func:`run_mesh_cell`); a train cell is
-    skipped with the ROADMAP item that brings its sharded form."""
+    ``fake`` world) a cell is rank 0's tensor-parallel program
+    (:func:`run_mesh_cell`)."""
     cfg = cfg or get_arch(arch_name)
     shape = get_shape(shape) if isinstance(shape, str) else shape
     rec = {"arch": arch_name, "shape": shape.name, "mesh": mesh_label}
@@ -433,10 +480,8 @@ def run_cell(arch_name: str, shape: Union[str, ShapeConfig], *,
     if not ok:
         return {**rec, "status": "skipped", "reason": reason}
     if mesh_label != "one-card":
-        if shape.kind == "train" or cfg.is_diffusion or mesh is None:
-            return {**rec, "status": "skipped",
-                    "reason": f"not priced on a mesh yet: "
-                              f"{S.TRAIN_MESH_ITEM}"}
+        if mesh is None:
+            raise ValueError(f"mesh {mesh_label!r} needs its DeviceMesh")
         return run_mesh_cell(cfg, shape, mesh, rec, verbose)
     rec.update(chips=1, status="error")
     t0 = time.monotonic()
@@ -477,10 +522,11 @@ COLLECTIVE_MODEL = (
 
 def run_mesh_cell(cfg, shape: ShapeConfig, mesh, rec: dict,
                   verbose: bool = True) -> dict:
-    """An LM prefill or decode cell as rank 0's tensor-parallel program on
-    ``mesh`` (a ``fake`` world): memory from the whole program on its
-    blocks, cost (collectives included) from one scan unit and the rest
-    as on one card (module docstring)."""
+    """A cell as rank 0's tensor-parallel program on ``mesh`` (a ``fake``
+    world): memory from the whole program on its blocks (a train step's
+    over two microbatches, with all its rows among the arguments, as on
+    one card), cost (collectives included) from one scan unit and the
+    rest as on one card; the DiT's counted whole (module docstring)."""
     from repro_torch.launch.mesh import axis_sizes
 
     chips = int(np.prod(list(axis_sizes(mesh).values())))
@@ -488,11 +534,24 @@ def run_mesh_cell(cfg, shape: ShapeConfig, mesh, rec: dict,
                placement=" x ".join(f"{k}={v}" for k, v in
                                     axis_sizes(mesh).items()))
     t0 = time.monotonic()
-    fn, args = _program(cfg, shape, mesh=mesh)
-    with torch.no_grad():
-        mem = _memory(fn, args)
+    train = shape.kind == "train"
+    fn, args = _program(cfg, shape, mesh=mesh,
+                        microbatches=2 if train else None)
+    # the DiT's whole program (one microbatch) counted once for both
+    whole = cfg.is_diffusion and cfg.train_grad_accum == 1
+    with torch.enable_grad() if train else torch.no_grad():
+        mem = _memory(fn, args, cost=whole)
+    if whole:
+        mem, cost = mem
+        n_units = 0
+    if train:
+        local = _local_shape(shape, mesh, cfg.train_grad_accum)
+        extra = _nbytes(S.input_specs(cfg, local)) - _nbytes(args[2])
+        for key in ("argument_bytes", "peak_bytes"):
+            mem[key] += extra
     del fn, args
-    cost, n_units = cell_cost(cfg, shape, mesh=mesh)
+    if not whole:
+        cost, n_units = cell_cost(cfg, shape, mesh=mesh)
     mf = RA.model_flops(cfg, shape)
     rec.update(
         status="ok", lower_s=None, compile_s=None,
@@ -623,7 +682,8 @@ def _cells(args) -> list:
         return []
     if not (args.arch and args.shape):
         raise SystemExit("--arch/--shape, --parataa or --all")
-    return [(args.arch, args.shape)]
+    return [(a, s) for a in args.arch.split(",")
+            for s in args.shape.split(",")]
 
 
 def _run(args, mesh_key: str) -> int:
@@ -664,8 +724,10 @@ def _run(args, mesh_key: str) -> int:
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--arch", default=None)
-    p.add_argument("--shape", default=None)
+    p.add_argument("--arch", default=None,
+                   help="an arch, or several joined by commas")
+    p.add_argument("--shape", default=None,
+                   help="a shape, or several joined by commas")
     p.add_argument("--all", action="store_true",
                    help="every assigned cell, dit-xl x train_4k and the "
                         "ParaTAA cell")

@@ -17,7 +17,12 @@ from the same rules that size it).
 
 A train step updates the params and optimizer state in place (the
 counterpart of the reference's donated buffers) and returns its metrics as
-0-d device tensors: nothing in it reads a value back to the host.
+0-d device tensors: nothing in it reads a value back to the host.  On a
+rank's ``ShardedParams`` it is the step the reference's GSPMD derives on a
+(data, model) mesh: the rank's rows of each global microbatch
+(:func:`local_batch`), forward and backward on its blocks, the gradient
+sync (``ShardedParams.sync_grads``) and AdamW on its blocks with the
+mesh's global norm.
 """
 from __future__ import annotations
 
@@ -40,10 +45,6 @@ from repro_torch.tree import flatten_with_paths, leaves, map_tree, unflatten
 PARAM_DTYPE = torch.bfloat16
 META = torch.device("meta")
 
-#: the ROADMAP item that brings the cells still missing on a mesh
-TRAIN_MESH_ITEM = ("ROADMAP Queue 1 item 3, step 2: the tensor-parallel "
-                   "backward and the DiT's train_4k cell on a mesh")
-
 
 def make_loss_fn(cfg: ArchConfig):
     """(params, batch) -> scalar loss: the DiT's denoising loss, or the
@@ -65,7 +66,11 @@ def make_loss_fn(cfg: ArchConfig):
 def make_grads_fn(cfg: ArchConfig, grad_accum: int = 1):
     """(params, batch) -> (mean loss, mean float32 grads) over
     ``grad_accum`` microbatches of the batch, summed in microbatch order as
-    the reference's accumulation scan sums them."""
+    the reference's accumulation scan sums them.  On a rank's
+    ``ShardedParams``: ``batch`` is the rank's rows of each microbatch in
+    turn (:func:`local_batch`), the loss the global batch's, and the grads
+    those of the rank's blocks, synced over the mesh
+    (``ShardedParams.sync_grads``)."""
     loss_fn = make_loss_fn(cfg)
 
     def grads_of(params, batch):
@@ -73,7 +78,8 @@ def make_grads_fn(cfg: ArchConfig, grad_accum: int = 1):
         if rows % grad_accum:
             raise ValueError(f"batch of {rows} rows does not split into "
                              f"{grad_accum} microbatches")
-        flat = leaves(params)
+        tp = params if isinstance(params, ShardedParams) else None
+        flat = leaves(tp.local if tp is not None else params)
         for p in flat:
             p.requires_grad_(True)
         try:
@@ -97,7 +103,10 @@ def make_grads_fn(cfg: ArchConfig, grad_accum: int = 1):
             loss = loss * inv
             for acc in grads:
                 acc.mul_(inv)
-        return loss, unflatten(params, grads)
+        if tp is None:
+            return loss, unflatten(params, grads)
+        tp.sync_grads(grads)
+        return loss, unflatten(tp.local, grads)
 
     return grads_of
 
@@ -127,8 +136,13 @@ def make_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
         if mark is not None:
             mark()
         lr = lr_schedule(step, base_lr=opt_cfg.lr, total_steps=total_steps)
-        params, opt_state, metrics = adamw_update(grads, opt_state, params,
-                                                  opt_cfg, lr)
+        if isinstance(params, ShardedParams):    # the rank's blocks
+            _, opt_state, metrics = adamw_update(
+                grads, opt_state, params.local, opt_cfg, lr,
+                counted=params.norm_counted(), groups=params.norm_groups())
+        else:
+            params, opt_state, metrics = adamw_update(
+                grads, opt_state, params, opt_cfg, lr)
         return params, opt_state, {"loss": loss, **metrics}
 
     return train_step
@@ -190,10 +204,43 @@ def _inputs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
 def input_partition(cfg: ArchConfig, shape: ShapeConfig, mesh) -> dict:
     """name -> PartitionSpec entries of each input on ``mesh``: the batch
     dim over the data-parallel axes (the "embed" rule's fsdp axes, with
-    its divisibility fallback), every other dim replicated."""
-    ba = resolve_axis("embed", shape.global_batch, mesh)
+    its divisibility fallback), every other dim replicated.  A train step
+    of several microbatches takes instead each microbatch's rows so split
+    (:func:`local_batch`)."""
+    ba = batch_entry(shape.global_batch, mesh)
     return {k: (ba,) + (None,) * (len(shp) - 1)
             for k, (shp, _) in _inputs(cfg, shape).items()}
+
+
+def batch_entry(rows: int, mesh, grad_accum: int = 1):
+    """The data axes (a PartitionSpec entry) each of ``grad_accum``
+    microbatches of a batch of ``rows`` splits over: the "embed" rule's
+    fsdp axes that divide a microbatch (the reference reshapes the batch
+    to (ga, B / ga) and shards the rows), None where none does."""
+    return resolve_axis("embed", rows // grad_accum, mesh)
+
+
+def local_batch(batch: dict, mesh, grad_accum: int = 1) -> dict:
+    """A global train batch (name -> (B, ...) tensors, the same on every
+    rank) -> this rank's rows of each of ``grad_accum`` microbatches
+    (global rows [i B/ga, (i+1) B/ga), the reference's), microbatch by
+    microbatch: its block over :func:`batch_entry`'s axes, or the whole
+    microbatch where none divides it.  What ``make_train_step`` on a
+    rank's ``ShardedParams`` takes."""
+    from repro_torch.models.pdefs import entry_index, entry_size
+
+    rows = next(iter(batch.values())).shape[0]
+    if rows % grad_accum:
+        raise ValueError(f"batch of {rows} rows does not split into "
+                         f"{grad_accum} microbatches")
+    mb = rows // grad_accum
+    entry = batch_entry(rows, mesh, grad_accum)
+    n = mb // entry_size(entry, mesh)
+    lo = entry_index(entry, mesh) * n
+    idx = torch.cat([torch.arange(i * mb + lo, i * mb + lo + n)
+                     for i in range(grad_accum)])
+    return {k: v.index_select(0, idx.to(v.device)) for k, v in
+            batch.items()}
 
 
 def _sharded_zeros(shp, dtype, device, mesh, spec):

@@ -20,7 +20,7 @@ computed on the device, so a decode step reads nothing back to the host.
 Long sequences (S > BLOCKED_ATTN_THRESHOLD) use the blocked online-softmax
 path (exact flash-style math, O(S * kv_block) live memory).
 
-Tensor parallel (``tp``, a ``shardctx.LayerTP``; forward only): under the
+Tensor parallel (``tp``, a ``shardctx.LayerTP``): under the
 ``heads`` strategy a rank computes its q heads (``wq``'s block) against
 the KV heads they read (``wk``/``wv``'s block, or the whole leaves where
 ``kv_heads`` does not divide ``model``, as the reference's GSPMD does) and
@@ -35,7 +35,12 @@ across ranks: each rank's max, sum and context over its valid slots, the
 max all-reduced, then the sums and contexts in one all-reduce (the
 collective form of ``flash_decode``'s combine); the q heads a rank holds
 are all-gathered first (every head reads every rank's slots), and only
-the rank that owns slot ``index % cap`` writes the new token.
+the rank that owns slot ``index % cap`` writes the new token.  In train
+mode the same code runs under grad: the heads form's input all-reduces
+its partial gradients (reduce-scatters them under ``seq_parallel``) and
+its whole leaves (``q_norm``/``k_norm``, and KV leaves that do not split)
+are marked partial; under a context-parallel split every leaf is (each
+rank's rows), and the gathered keys' backward reduce-scatters.
 """
 from __future__ import annotations
 
@@ -316,7 +321,7 @@ def _attention_decode(params, cfg: ArchConfig, x, positions, *, window: int,
 
 
 # ---------------------------------------------------------------------------
-# Tensor parallel (forward only; the module docstring)
+# Tensor parallel (the module docstring)
 # ---------------------------------------------------------------------------
 
 
@@ -359,14 +364,17 @@ def _attention_tp(params, cfg: ArchConfig, x, positions, *, window: int,
         q, k, v = _project_qkv(params, cfg, x,
                                positions.narrow(-1, tp.row0, rows))
         if tp.seq_split:
-            kv = comm.all_gather_cat(torch.cat([k, v], dim=-1), tp.group, 1)
+            # each rank's queries read every key: partial gradients
+            tp.mark("attn")
+            kv = comm.gather_partial(torch.cat([k, v], dim=-1), tp.group, 1)
             k, v = kv.chunk(2, dim=-1)
         ctx = _core(q, _repeat_kv(k, g), _repeat_kv(v, g),
                     pos.narrow(-1, tp.row0, rows), pos, window=window,
                     causal=causal, s=s)
         out, k0 = _out(params, ctx, x.dtype), 0
     else:
-        q, k, v = _project_qkv(params, cfg, tp.rows_in(x), positions)
+        q, k, v = _project_qkv(params, cfg, tp.rows_in(x, "attn/wq"),
+                               positions)
         h0, h1 = _head_range(tp, "attn/wq", H)
         k0 = _head_range(tp, "attn/wk", KV)[0]
         ctx = _core(q, _kv_for(k, h0, h1, g, k0), _kv_for(v, h0, h1, g, k0),

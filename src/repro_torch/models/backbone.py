@@ -21,10 +21,13 @@ each tail layer) in the backward pass (``torch.utils.checkpoint``, the
 reference's ``jax.checkpoint``).  Prefill and decode write the cache in
 place.
 
-Tensor parallel (forward only): given a rank's ``shardctx.ShardedParams``
-of ``build_defs`` and a ``shardctx.ShardedCache`` (``launch.steps.
-local_cache``), ``forward``/``prefill``/``decode_step``/``lm_loss`` (no
-grad) run the reference's layout.  Outside decode, for ``tp_strategy=
+Tensor parallel: given a rank's ``shardctx.ShardedParams`` of
+``build_defs`` and a ``shardctx.ShardedCache`` (``launch.steps.
+local_cache``), ``forward``/``prefill``/``decode_step``/``lm_loss`` run
+the reference's layout, and ``lm_loss`` and ``forward`` differentiate
+under grad (each collective's backward is ``comm``'s form for its call
+site; train mode recomputes each layer, its gather and collectives
+included, in the backward pass).  Outside decode, for ``tp_strategy=
 "hidden"`` archs and ``seq_parallel`` ones, the residual between
 sublayers is the rank's rows over ``model`` (:func:`seq_split`; the
 reference's ``constrain(h, "batch", "seq", None)``); elsewhere it is
@@ -58,8 +61,8 @@ from repro_torch.models.moe import moe_apply, moe_def
 from repro_torch.models.pdefs import ParamSpec, stack_defs
 from repro_torch.models.rglru import init_rglru_cache, rglru_apply, \
     rglru_def
-from repro_torch.models.shardctx import LayerTP, ShardedCache, ShardedParams
-from repro_torch.tree import leaves
+from repro_torch.models.shardctx import (LayerTP, ShardedCache, ShardedParams,
+                                         remat_tp)
 
 # ---------------------------------------------------------------------------
 # Definitions
@@ -170,7 +173,11 @@ def _apply_layer(cfg: ArchConfig, kind: str, params, h, positions, *,
                  mode: str, cache, causal: bool, tp: Optional[LayerTP] = None):
     """-> (h, MoE aux loss or None); the cache is written in place.
     ``tp``: the layer's tensor-parallel view (``params`` its blocks,
-    ``h`` the residual's layout)."""
+    ``h`` the residual's layout; under a row split the norms see each
+    rank's rows, so their gradients are partial)."""
+    if tp is not None and tp.seq_split:
+        for name in ("norm", "norm1", "norm2"):
+            tp.mark(name)
     if kind == "ssm":
         y, _ = mamba_apply(params["mamba"], cfg,
                            rmsnorm(params["norm"], h, cfg.norm_eps),
@@ -191,7 +198,8 @@ def _apply_layer(cfg: ArchConfig, kind: str, params, h, positions, *,
         return h + y2, aux
     if tp is None:
         return h + mlp(params["mlp"], x2, cfg.act), None
-    return h + tp.rows_out("mlp/wo", mlp(params["mlp"], tp.rows_in(x2),
+    return h + tp.rows_out("mlp/wo", mlp(params["mlp"],
+                                         tp.rows_in(x2, "mlp/wo"),
                                          cfg.act)), None
 
 
@@ -216,12 +224,12 @@ def trunk(params, cfg: ArchConfig, h, positions, *, mode: str = "train",
     mode) recomputes each layer (a hybrid's period group) in the backward
     pass; it applies only where autograd records.  On a rank's
     ``ShardedParams`` (and ``ShardedCache``): :func:`_trunk_tp`."""
-    if isinstance(params, ShardedParams):
-        return _trunk_tp(params, cfg, h, positions, mode=mode, cache=cache,
-                         causal=causal)
     if remat is None:
         remat = mode == "train"
     remat = remat and torch.is_grad_enabled()
+    if isinstance(params, ShardedParams):
+        return _trunk_tp(params, cfg, h, positions, mode=mode, cache=cache,
+                         causal=causal, remat=remat)
 
     def run(fn, *args, **kw):
         if remat:
@@ -344,22 +352,137 @@ def tp_collectives(cfg: ArchConfig, mode: str, model: int, data: int,
     return c
 
 
-def _forward_only(tp: ShardedParams) -> None:
-    if torch.is_grad_enabled() and any(
-            x.requires_grad for x in leaves(tp.local)):
-        from repro_torch.launch.steps import TRAIN_MESH_ITEM
+def _replicated_over_data(defs, data: int) -> bool:
+    """Whether some leaf of ``defs`` is replicated over a data axis of
+    ``data`` ranks (its gradient then all-reduced over data)."""
+    from types import SimpleNamespace
 
-        raise NotImplementedError(
-            f"the tensor-parallel LM backbones are forward-only: "
-            f"{TRAIN_MESH_ITEM}")
+    import numpy as np
+
+    from repro_torch.models.pdefs import resolve_spec, walk
+
+    mesh = SimpleNamespace(mesh_dim_names=("data", "model"),
+                           mesh=np.zeros((data, 1)))
+    return data > 1 and any("data" not in resolve_spec(spec, mesh)
+                            for _, spec in walk(defs))
+
+
+def tp_train_collectives(cfg: ArchConfig, model: int, data: int, s: int,
+                         grad_accum: int = 1) -> dict:
+    """Collectives of one tensor-parallel train step
+    (``launch.steps.make_train_step`` on a rank's ``ShardedParams``; ``s``
+    tokens, ``grad_accum`` microbatches; float32; every ``mlp``,
+    ``expert``, ``inner`` and ``ssm_heads`` dim divides ``model``).  A
+    microbatch's ``lm_loss`` calls:
+
+    * forward: :func:`tp_collectives`'s train-mode call, without the
+      head's vocab all-gather: the loss is a vocab-parallel cross entropy
+      over model > 1 (the max and the sums, 2 all-reduces; with a whole
+      head, 1 of each rank's rows' sum under a split); the loss's mean over
+      data > 1 (1 all-reduce);
+    * the recompute of every unit (a layer, a hybrid's period group or
+      tail layer) in the backward pass: the unit's forward collectives
+      again, its data-axis gather included;
+    * the backward, each forward collective's adjoint (``comm``'s table):
+      a reduce-scatter for each gather of rows into split leaves, of keys
+      and of shared gate-block inputs, and for each data-axis gather; an
+      all-gather for each reduce-scatter of rows; an all-reduce for each
+      sublayer input entering split leaves unsplit (attention's under
+      ``heads``, the MLP's, MoE's, mamba2's, the RG-LRU's, the head's) and
+      for mamba2's gated norm; none for a sum of partials (its gradient
+      passes through).
+
+    The step adds the gradient sync — 1 all-reduce over data > 1 of the
+    leaves it does not split, 1 over model > 1 of the whole leaves with
+    partial gradients (every split layer's norms, attention's ``q_norm``/
+    ``k_norm`` and unsplit KV leaves, mamba2's B/C projections and norm,
+    the MoE router) — and the global norm's (1 over model > 1, 1 over
+    data > 1)."""
+    H, KV, V = cfg.num_heads, cfg.num_kv_heads, cfg.vocab_size
+    split = (cfg.tp_strategy == "hidden" or cfg.seq_parallel) \
+        and s % model == 0
+    heads = cfg.tp_strategy == "heads"
+    head_split = V % model == 0
+    c = {"all-gather": 0, "all-reduce": 0, "reduce-scatter": 0}
+
+    def add(counts, n=1):
+        for k, v in counts.items():
+            c[k] += n * v
+
+    fwd = tp_collectives(cfg, "train", model, data, s)
+    # no logits gathered; a whole head reads each rank's own rows
+    fwd["all-gather"] -= head_split + (split and not head_split)
+    units = 0
+    if data > 1:
+        _, n_per, tail = hybrid_layout(cfg) if cfg.is_hybrid else \
+            (None, cfg.num_layers, ())
+        units = n_per + len(tail)
+    # the units' forward (recomputed): everything but the embedding, the
+    # head and the top leaves' gather
+    rec = {"all-gather": 0, "all-reduce": 0, "reduce-scatter": 0}
+    bwd = {"all-gather": 0, "all-reduce": 0, "reduce-scatter": 0}
+    out_kind = "reduce-scatter" if split else "all-reduce"
+    for kind in cfg.layer_kinds():
+        # a sublayer's input entering split leaves: a gather (-> RS) under
+        # a split, else an all-reduce of its gradient; its output's
+        # reduce-scatter -> AG
+        def sublayer(sharded: bool):
+            if split:
+                rec["all-gather"] += 1
+                bwd["reduce-scatter"] += 1
+            elif sharded:
+                bwd["all-reduce"] += 1
+            if sharded:
+                rec[out_kind] += 1
+                bwd["all-gather"] += split
+        if kind == "attn":
+            if heads:
+                sublayer(H % model == 0)
+            elif split:                         # context parallel keys
+                rec["all-gather"] += 1
+                bwd["reduce-scatter"] += 1
+        elif kind == "ssm":
+            sublayer(True)
+            rec["all-reduce"] += 1
+            bwd["all-reduce"] += 1
+        else:
+            sublayer(True)
+            if rglru.NUM_GATE_BLOCKS % model:
+                rec["all-gather"] += 1
+                bwd["reduce-scatter"] += 1
+        if kind != "ssm":
+            sublayer(True)
+            rec["all-reduce"] += cfg.is_moe and data > 1
+    rec["all-gather"] += units
+    bwd["reduce-scatter"] += units + (data > 1)       # and the top leaves'
+    if cfg.frontend != "embed" and head_split and split:
+        bwd["all-gather"] += 1                        # the embedding's RS
+    if head_split:                                    # the head's input
+        bwd["reduce-scatter" if split else "all-reduce"] += 1
+        fwd["all-reduce"] += 2 * (model > 1)
+    else:
+        fwd["all-reduce"] += split
+    fwd["all-reduce"] += data > 1
+    add(fwd, grad_accum)
+    add(rec, grad_accum)
+    add(bwd, grad_accum)
+    partial = model > 1 and (
+        split or cfg.is_moe or "ssm" in cfg.layer_kinds()
+        or ("attn" in cfg.layer_kinds() and heads and H % model == 0
+            and (cfg.qk_norm or KV % model != 0)))
+    c["all-reduce"] += _replicated_over_data(build_defs(cfg), data) \
+        + partial + (model > 1) + (data > 1)
+    return c
 
 
 def _trunk_tp(tp: ShardedParams, cfg: ArchConfig, h, positions, *,
-              mode: str, cache: Optional[ShardedCache], causal: bool):
+              mode: str, cache: Optional[ShardedCache], causal: bool,
+              remat: bool = False):
     """The trunk on a rank's blocks: ``h`` in the residual's layout (the
     rank's rows under :func:`seq_split`), ``positions`` every row's;
-    returns the final-norm h in the same layout."""
-    _forward_only(tp)
+    returns the final-norm h in the same layout.  ``remat`` recomputes
+    each unit (a layer, a hybrid's period group or tail layer) — its
+    data-axis gather included — in the backward pass."""
     s = positions.shape[-1]
     split = seq_split(cfg, tp, mode, s)
     specs = cache.specs if cache is not None else {}
@@ -379,30 +502,41 @@ def _trunk_tp(tp: ShardedParams, cfg: ArchConfig, h, positions, *,
             else [None] * n_per
         tps = [view(f"periods/l{j}/", f"periods/l{j}/", True)
                for j in range(len(group_kinds))]
+
+        def group(gp, h, gc):
+            return _apply_group(cfg, group_kinds,
+                                tp.gather_tree("periods/", gp), h,
+                                positions, mode=mode, cache=gc,
+                                causal=causal, tps=tps)
         for gp, gc in zip(_unstack(tree["periods"], n_per), caches):
-            gp = tp.gather_tree("periods/", gp)
-            h, a = _apply_group(cfg, group_kinds, gp, h, positions,
-                                mode=mode, cache=gc, causal=causal, tps=tps)
+            h, a = remat_tp(remat, group, gp, h, gc)
             aux = _add(aux, a)
         for j, kind in enumerate(tail_kinds):
-            lp = tp.gather_tree(f"tail/{j}/", tree["tail"][j])
-            h, a = _apply_layer(cfg, kind, lp, h, positions, mode=mode,
-                                cache=local["tail"][j] if local is not None
-                                else None, causal=causal,
-                                tp=view(f"tail/{j}/", f"tail/{j}/", False))
+            def tail(lp, h, lc, j=j, kind=kind):
+                return _apply_layer(
+                    cfg, kind, tp.gather_tree(f"tail/{j}/", lp), h,
+                    positions, mode=mode, cache=lc, causal=causal,
+                    tp=view(f"tail/{j}/", f"tail/{j}/", False))
+            h, a = remat_tp(remat, tail, tree["tail"][j], h,
+                            local["tail"][j] if local is not None else None)
             aux = _add(aux, a)
     else:
         L, kind = cfg.num_layers, cfg.layer_kinds()[0]
         caches = _unstack(local, L) if local is not None else [None] * L
         ltp = view("layers/", "", True)
-        for lp, lc in zip(_unstack(tree["layers"], L), caches):
-            h, a = _apply_layer(cfg, kind, tp.gather_tree("layers/", lp),
+
+        def layer(lp, h, lc):
+            return _apply_layer(cfg, kind, tp.gather_tree("layers/", lp),
                                 h, positions, mode=mode, cache=lc,
                                 causal=causal, tp=ltp)
+        for lp, lc in zip(_unstack(tree["layers"], L), caches):
+            h, a = remat_tp(remat, layer, lp, h, lc)
             aux = _add(aux, a)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     norm = tp.gather_tree("final_norm/", tree["final_norm"])
+    if split:
+        _rows(tp, split, s).mark("final_norm")
     return rmsnorm(norm, h, cfg.norm_eps), cache, aux
 
 
@@ -448,24 +582,38 @@ def _embed_tp(tp: ShardedParams, cfg: ArchConfig, top: dict, inputs,
         return rows.own_rows(embed(top, cfg, inputs))
     w = top["embed"]
     if not tp.sharded("embed"):
+        if split:                   # each rank's rows: partial gradients
+            rows.mark("embed")
         return rows.own_rows(embed(top, cfg, inputs))
     v = w.shape[0]
     ids = inputs.long() - tp.model_rank * v
     hit = (ids >= 0) & (ids < v)
     h = torch.where(hit[..., None], F.embedding(ids.clamp(0, v - 1), w),
                     torch.zeros((), dtype=w.dtype, device=w.device))
-    h = comm.reduce_scatter(h, tp.model_group, 1) if split else \
-        comm.all_reduce_sum_(h, tp.model_group)
+    h = comm.scatter_sum(h, tp.model_group, 1) if split else \
+        comm.sum_replicated(h, tp.model_group)
     if cfg.is_hybrid:
         h = h * float(torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype))
     return h
 
 
-def _unembed_tp(tp: ShardedParams, cfg: ArchConfig, top: dict, h):
-    """Column-parallel logits of whole-row ``h``, the vocab columns
-    all-gathered over ``model``."""
-    logits = tp.model_cat("embed" if cfg.tie_embeddings else "lm_head",
-                          h @ head_weight(top, cfg), -1)
+def _head(cfg: ArchConfig) -> str:
+    return "embed" if cfg.tie_embeddings else "lm_head"
+
+
+def _unembed_tp(tp: ShardedParams, cfg: ArchConfig, top: dict, h,
+                split: bool = False, s: int = 0):
+    """Column-parallel logits of ``h`` (the rank's rows under ``split``,
+    ``s`` rows in all: every row's logits), the vocab columns all-gathered
+    over ``model``."""
+    rows = _rows(tp, split, s)
+    if tp.sharded(_head(cfg)):
+        logits = tp.model_cat(_head(cfg), rows.rows_in(h, _head(cfg))
+                              @ head_weight(top, cfg), -1)
+    else:                       # a whole head: each rank's rows' logits
+        if split:
+            rows.mark(_head(cfg))
+        logits = rows.rows_whole(h @ head_weight(top, cfg))
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits
@@ -494,18 +642,17 @@ def default_positions(cfg: ArchConfig, batch: int, seq: int, device,
 
 def forward(params, cfg: ArchConfig, inputs, positions=None, *, remat=None):
     """Train-shape forward: inputs -> (logits (B, S, V), aux).  On a
-    rank's ``ShardedParams``: its data shard's logits (forward only)."""
+    rank's ``ShardedParams``: its data shard's logits."""
     b, s = inputs.shape[:2]
     if positions is None:
         positions = default_positions(cfg, b, s, inputs.device)
     if isinstance(params, ShardedParams):
-        _forward_only(params)
         split = seq_split(cfg, params, "train", s)
         top = _top(params, cfg)
         h = _embed_tp(params, cfg, top, inputs, split)
-        h, _, aux = trunk(params, cfg, h, positions, mode="train")
-        return _unembed_tp(params, cfg, top,
-                           _rows(params, split, s).rows_in(h)), aux
+        h, _, aux = trunk(params, cfg, h, positions, mode="train",
+                          remat=remat)
+        return _unembed_tp(params, cfg, top, h, split, s), aux
     h = embed(params, cfg, inputs)
     h, _, aux = trunk(params, cfg, h, positions, mode="train", remat=remat)
     return unembed(params, cfg, h), aux
@@ -519,7 +666,6 @@ def prefill(params, cfg: ArchConfig, inputs, cache, positions=None, *,
     if positions is None:
         positions = default_positions(cfg, b, s, inputs.device)
     if isinstance(params, ShardedParams):
-        _forward_only(params)
         split = seq_split(cfg, params, "prefill", s)
         top = _top(params, cfg)
         h = _embed_tp(params, cfg, top, inputs, split)
@@ -531,7 +677,7 @@ def prefill(params, cfg: ArchConfig, inputs, cache, positions=None, *,
         elif last_only:
             h = h[:, -1:]
         else:
-            h = _rows(params, split, s).rows_in(h)
+            return _unembed_tp(params, cfg, top, h, split, s), cache
         return _unembed_tp(params, cfg, top, h), cache
     h = embed(params, cfg, inputs)
     h, cache, _ = trunk(params, cfg, h, positions, mode="prefill",
@@ -559,7 +705,6 @@ def decode_step(params, cfg: ArchConfig, token, cache):
     pos = cache_index(cfg, cache).clone().view(1, 1).expand(b, 1)
     positions = pos[None].expand(3, b, 1) if cfg.m_rope else pos
     if isinstance(params, ShardedParams):
-        _forward_only(params)
         top = _top(params, cfg)
         h = _embed_tp(params, cfg, top, token, False)
         h, cache, _ = trunk(params, cfg, h, positions, mode="decode",
@@ -608,41 +753,51 @@ def _chunked_xent(h, w, labels, softcap: float):
 
 
 def _lm_loss_tp(tp: ShardedParams, cfg: ArchConfig, batch):
-    """The loss on a rank's blocks and data shard (no grad): vocab-parallel
-    cross entropy — the logits' max all-reduced over ``model``, then the
-    sum of exponentials and the gold logit in one all-reduce — averaged
-    over the data axes."""
+    """The loss on a rank's blocks and data shard: vocab-parallel cross
+    entropy over ``model`` of more than one rank — the logits' max
+    all-reduced (no gradient: the shift cancels), then the sum of
+    exponentials and the gold logit in one all-reduce — averaged over the
+    data axes (the global batch's mean: each rank's gradient is 1/data of
+    its rows').  At one model rank the host's batch-chunked cross entropy
+    on the same tensors; with a whole head (the vocab does not divide
+    ``model``) each rank's rows, summed over ``model`` under a split."""
     inputs, labels = batch["inputs"], batch["labels"]
     b, s = inputs.shape[:2]
     split = seq_split(cfg, tp, "train", s)
+    rows = _rows(tp, split, s)
     top = _top(tp, cfg)
     h = _embed_tp(tp, cfg, top, inputs, split)
     h, _, aux = trunk(tp, cfg, h, default_positions(cfg, b, s,
                                                     inputs.device),
                       mode="train")
-    logits = (_rows(tp, split, s).rows_in(h)
-              @ head_weight(top, cfg)).float()
-    if cfg.logit_softcap:
-        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
-    v = logits.shape[-1]
-    ids = labels.long()
-    if tp.sharded("embed" if cfg.tie_embeddings else "lm_head"):
-        ids = ids - tp.model_rank * v
-        top_ = comm.all_reduce_max(logits.amax(dim=-1), tp.model_group)
+    w, softcap = head_weight(top, cfg), cfg.logit_softcap
+    if not tp.sharded(_head(cfg)):
+        if split:                   # each rank's rows: partial gradients
+            rows.mark(_head(cfg))
+        nll = _xent_sum(h, w, rows.own_rows(labels), softcap)
+        if split:
+            nll = comm.sum_replicated(nll, tp.model_group)
+        nll = nll / (b * s)
+    elif tp.model_size == 1:
+        nll = _chunked_xent(rows.rows_in(h, _head(cfg)), w, labels, softcap)
+    else:
+        logits = (rows.rows_in(h, _head(cfg)) @ w).float()
+        if softcap:
+            logits = torch.tanh(logits / softcap) * softcap
+        v = logits.shape[-1]
+        ids = labels.long() - tp.model_rank * v
+        top_ = comm.all_reduce_max(logits.detach().amax(dim=-1),
+                                   tp.model_group)
         hit = (ids >= 0) & (ids < v)
         gold = torch.where(hit, logits.gather(
             -1, ids.clamp(0, v - 1)[..., None])[..., 0], 0.0)
-        sums = comm.all_reduce_sum_(torch.stack([
+        sums = comm.sum_replicated(torch.stack([
             torch.exp(logits - top_[..., None]).sum(dim=-1), gold]),
             tp.model_group)
         nll = (torch.log(sums[0]) + top_ - sums[1]).sum() / (b * s)
-    else:
-        logz = torch.logsumexp(logits, dim=-1)
-        nll = (logz - logits.gather(-1, ids[..., None])[..., 0]).sum() \
-            / (b * s)
     group = tp.data_group()
     if group is not None and comm.group_size(group) > 1:
-        nll = comm.all_reduce_sum(nll, group) / comm.group_size(group)
+        nll = comm.sum_replicated(nll, group) / comm.group_size(group)
     if cfg.is_moe:
         nll = nll + 0.01 * aux / cfg.num_layers
     return nll
@@ -650,9 +805,8 @@ def _lm_loss_tp(tp: ShardedParams, cfg: ArchConfig, batch):
 
 def lm_loss(params, cfg: ArchConfig, batch):
     """batch: {"inputs": (B,S) ids or (B,S,d) embeds, "labels": (B,S)}.
-    On a rank's ``ShardedParams`` (no grad): :func:`_lm_loss_tp`."""
+    On a rank's ``ShardedParams``: :func:`_lm_loss_tp`."""
     if isinstance(params, ShardedParams):
-        _forward_only(params)
         return _lm_loss_tp(params, cfg, batch)
     inputs = batch["inputs"]
     b, s = inputs.shape[:2]

@@ -20,7 +20,8 @@ def rmsnorm(params, x, eps: float = 1e-6, group=None, width: int = 0):
     """RMSNorm over the last axis, in float32.  With ``group``, ``x`` holds
     this rank's block of a last axis of ``width`` split over the group
     (and ``params["scale"]`` the matching block): the sum of squares is
-    all-reduced over it in float32."""
+    all-reduced over it in float32 (each rank then normalizes its block,
+    so the backward all-reduces the sum's partial gradients)."""
     dt = x.dtype
     x = x.float()
     if group is None:
@@ -28,8 +29,8 @@ def rmsnorm(params, x, eps: float = 1e-6, group=None, width: int = 0):
     else:
         from repro_torch import comm
 
-        var = comm.all_reduce_sum_(x.square().sum(dim=-1, keepdim=True),
-                                   group) / width
+        var = comm.sum_partial(x.square().sum(dim=-1, keepdim=True),
+                               group) / width
     y = x * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(dt)
 

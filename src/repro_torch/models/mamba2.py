@@ -13,7 +13,7 @@ Prefill and decode write the cache (state, conv carries, device int32
 ``index``) in place and return it, as the port's attention cache does: a
 decode step reads nothing back to the host.
 
-Tensor parallel (``tp``, a ``shardctx.LayerTP``; forward only): a rank
+Tensor parallel (``tp``, a ``shardctx.LayerTP``): a rank
 runs its ``inner`` channels and SSD heads (``in_x``/``in_z``/``in_dt``
 columns, ``conv_x``, ``A_log``/``dt_bias``/``D``) on every row (the
 residual's rows all-gathered in under a split), ``in_B``/``in_C`` and
@@ -189,7 +189,7 @@ def mamba_apply(params, cfg: ArchConfig, x, *, mode: str = "train",
     prefill and decode write ``cache`` in place and return it.  ``tp``:
     the layer's ``shardctx.LayerTP`` (the module docstring)."""
     if tp is not None:
-        x = tp.rows_in(x)
+        x = tp.rows_in(x, "mamba/in_x")
     b, s, _ = x.shape
     h, p = cfg.ssm_nheads, cfg.ssm_head_dim
     g, n = cfg.ssm_ngroups, cfg.ssm_state

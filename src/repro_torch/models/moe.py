@@ -16,8 +16,8 @@ Unlike the reference's scatter-add, the combine puts the slots back in
 The capacity is computed on the host from shapes; nothing reads the
 device.
 
-Expert parallelism (``tp``, a ``shardctx.LayerTP`` over a rank's blocks;
-forward only): the experts are the rank's block of ``we_*`` (``expert``
+Expert parallelism (``tp``, a ``shardctx.LayerTP`` over a rank's
+blocks): the experts are the rank's block of ``we_*`` (``expert``
 over ``model``, the reference's shard_map in_specs); each rank routes all
 its data shard's tokens with the whole router and dispatches them to the
 experts it owns, dropping past the capacity of the call's tokens; the
@@ -25,7 +25,11 @@ shared-expert MLP is column/row parallel over ``mlp``.  The experts'
 partials and the shared MLP's are added first and summed over ``model``
 in the layer's one all-reduce (the reference's ``psum``; a reduce-scatter
 over the rows under a sequence split), and in ``train`` mode the aux loss
-is averaged over the data axes.  The LM backbones pass their layer's
+is averaged over the data axes.  Under grad the layer computes on each
+rank's partial gradients: its input's backward all-reduces them, the
+whole router is marked partial, and the aux loss — the same on every
+rank — hands each rank 1/model of its gradient (as a whole shared MLP's
+output does beside split experts).  The LM backbones pass their layer's
 ``tp``; under an ambient mesh whose ``model`` axis has more than one rank
 and divides the padded expert count, ``moe_apply`` builds it from a whole
 tree (:func:`expert_parallel`, the reference's shard_map branch).
@@ -174,7 +178,8 @@ def expert_parallel(params, cfg: ArchConfig, x, mesh, mode: str = "train"):
 
 def _moe_tp(params, cfg: ArchConfig, x, tp, mode: str):
     """The MoE layer on a rank's blocks (the module docstring)."""
-    xt_rows = tp.rows_in(x)
+    xt_rows = tp.rows_in(x, "moe/we_gate")
+    partial = tp.seq_split or tp.sharded("moe/we_gate")
     b, s, d = xt_rows.shape
     t = b * s
     xt = xt_rows.reshape(t, d)
@@ -182,7 +187,9 @@ def _moe_tp(params, cfg: ArchConfig, x, tp, mode: str):
     group = tp.params.data_group()
     if mode == "train" and group is not None \
             and comm.group_size(group) > 1:
-        aux = comm.all_reduce_sum(aux, group) / comm.group_size(group)
+        aux = comm.sum_replicated(aux, group) / comm.group_size(group)
+    if partial:
+        aux = tp.share_grad(aux)
     e_loc = params["we_gate"].shape[0]
     ep = padded_experts(cfg)
     lo = tp.rank * e_loc if tp.sharded("moe/we_gate") else 0
@@ -195,8 +202,11 @@ def _moe_tp(params, cfg: ArchConfig, x, tp, mode: str):
         shared = 0
     out = tp.rows_out("moe/we_gate", out.view(b, s, d))
     if shared:
-        out = out + tp.rows_out("moe/shared/wo", mlp(
-            params["shared"], xt, cfg.act).view(b, s, d)).float()
+        y = tp.rows_out("moe/shared/wo", mlp(params["shared"], xt,
+                                             cfg.act).view(b, s, d))
+        if partial and not tp.seq_split:
+            y = tp.share_grad(y)
+        out = out + y.float()
     return out.to(x.dtype), aux
 
 

@@ -11,7 +11,7 @@ here it is a Hillis-Steele scan of whole-tensor ops, ceil(log2 S) passes
 bit for bit).  Prefill and decode write the cache in place, as
 ``models.mamba2`` does.
 
-Tensor parallel (``tp``, a ``shardctx.LayerTP``; forward only): a rank
+Tensor parallel (``tp``, a ``shardctx.LayerTP``): a rank
 owns a contiguous block of the ``inner`` channels — its ``w_y``/``w_x``
 columns, ``conv``, ``b_*``, ``lam``, its cache's ``state`` and ``conv``
 blocks, its ``w_o`` rows (row-parallel) — on every row (the residual's
@@ -121,7 +121,8 @@ def _gate_inputs(u, tp):
     from repro_torch.launch.mesh import model_subgroup
 
     share = parts // NUM_GATE_BLOCKS
-    return comm.all_gather_cat(u, model_subgroup(tp.params.mesh, share), -1)
+    # each rank's gate columns read the block: partial gradients
+    return comm.gather_partial(u, model_subgroup(tp.params.mesh, share), -1)
 
 
 def rglru_apply(params, cfg: ArchConfig, x, *, mode: str = "train",
@@ -130,7 +131,7 @@ def rglru_apply(params, cfg: ArchConfig, x, *, mode: str = "train",
     decode write ``cache`` in place and return it.  ``tp``: the layer's
     ``shardctx.LayerTP`` (the module docstring)."""
     if tp is not None:
-        x = tp.rows_in(x)
+        x = tp.rows_in(x, "rec/w_o")
     y_branch = act_fn("gelu")(x @ params["w_y"])
     u = x @ params["w_x"]
     u, new_conv = _causal_conv(u, params["conv"],

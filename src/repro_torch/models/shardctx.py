@@ -41,7 +41,18 @@ and a collective is an explicit call.  What carries over:
     parallelism: all-gathered into a sublayer, its row-parallel partials
     reduce-scattered out) or whole (partials all-reduced), and the split
     of each of its cache leaves (``launch.steps.cache_partition``, the
-    reference's ``_cache_spec_for``).
+    reference's ``_cache_spec_for``);
+  * the backward of both, which GSPMD derives: each collective above is
+    one of ``comm``'s differentiable forms, chosen by what its call site's
+    downstream gradient is (``comm``'s table).  A sublayer whose leaves
+    are split over ``model`` (or whose rows come gathered from a split)
+    computes on each rank's partial gradient, so the leaves it holds
+    whole get partial gradients too (:meth:`LayerTP.rows_in` marks them,
+    ``ShardedParams.partial``); :meth:`ShardedParams.sync_grads`
+    all-reduces those over ``model`` and the leaves replicated over the
+    data axes over data, and :meth:`ShardedParams.norm_counted` says which
+    blocks a rank counts in the mesh's global gradient norm (each element
+    once).
 """
 from __future__ import annotations
 
@@ -204,6 +215,10 @@ class ShardedParams:
     model_axis: the tensor-parallel axis; every other sharded axis is
                 FSDP, gathered before use
     groups:     a spec entry's axes -> their process group
+    partial:    paths (from the root carrier) of the leaves held whole over
+                ``model`` whose gradients are each rank's partial (marked
+                by the forward, :meth:`LayerTP.rows_in`)
+    prefix:     this carrier's path from the root (:meth:`sub`)
     """
     local: object
     specs: Dict[str, Tuple]
@@ -211,6 +226,8 @@ class ShardedParams:
     model_axis: str = "model"
     groups: Dict[Tuple[str, ...], object] = dataclasses.field(
         default_factory=dict)
+    partial: set = dataclasses.field(default_factory=set)
+    prefix: str = ""
 
     @classmethod
     def build(cls, params, defs, mesh, model_axis: str = "model",
@@ -249,7 +266,7 @@ class ShardedParams:
         ``key/`` prefix), on the same mesh and groups."""
         pre = f"{key}/"
         return dataclasses.replace(
-            self, local=self.local[key],
+            self, local=self.local[key], prefix=self.prefix + pre,
             specs={p[len(pre):]: e for p, e in self.specs.items()
                    if p.startswith(pre)})
 
@@ -293,7 +310,9 @@ class ShardedParams:
         for (axes, _), items in todo.items():
             group = self.groups[axes]
             n = comm.group_size(group)
-            flat = comm.all_gather_cat(torch.cat(
+            # each data rank's gradient of the whole leaf is its rows'
+            # partial: the backward reduce-scatters them into its block
+            flat = comm.gather_partial(torch.cat(
                 [blocks[p].reshape(-1) for p, _ in items]), group, 0
             ).view(n, -1)
             start = 0
@@ -339,18 +358,90 @@ class ShardedParams:
     def model_cat(self, path: str, x: torch.Tensor,
                   dim: int = -1) -> torch.Tensor:
         """The columns of a column-parallel product by ``path``'s leaf,
-        all-gathered over model (``x`` itself where the leaf is whole)."""
+        all-gathered over model (``x`` itself where the leaf is whole),
+        used alike on every rank: the backward keeps the rank's
+        columns."""
         if not self.sharded(path):
             return x
-        return comm.all_gather_cat(x, self.model_group, dim % x.dim())
+        return comm.gather_replicated(x, self.model_group, dim % x.dim())
 
     def model_sum(self, path: str, x: torch.Tensor) -> torch.Tensor:
         """The partial sums of a row-parallel product by ``path``'s leaf,
-        added over model in place (``x``, a product no one else reads, is
-        returned as it is where the leaf is whole)."""
+        added over model (in place without grad: ``x`` is a product no one
+        else reads; ``x`` as it is where the leaf is whole)."""
         if not self.sharded(path):
             return x
-        return comm.all_reduce_sum_(x, self.model_group)
+        return comm.sum_replicated(x, self.model_group)
+
+    def model_in(self, path: str, x: torch.Tensor) -> torch.Tensor:
+        """A replicated ``x`` entering a product by ``path``'s leaf split
+        over model: the backward all-reduces its partial gradients
+        (Megatron's *f*; ``x`` itself where the leaf is whole)."""
+        if not self.sharded(path):
+            return x
+        return comm.partial_grads(x, self.model_group)
+
+    # --- the gradient sync and the global norm --------------------------------
+
+    def _axes(self) -> Dict[str, int]:
+        """The model and data axes of more than one rank (a train step
+        splits nothing else)."""
+        return {a: int(n) for a, n in _sizes(self.mesh).items()
+                if int(n) > 1 and a in (self.model_axis, "pod", "data")}
+
+    def _split_axes(self, path: str) -> set:
+        return {a for e in self.specs[path] for a in entry_axes(e)}
+
+    def sync_grads(self, grads) -> None:
+        """Completes a rank's gradients of its blocks (``grads`` in
+        ``leaves(self.local)`` order), in place: the leaves replicated over
+        data axes of more than one rank all-reduced over those axes, and
+        the leaves marked :attr:`partial` all-reduced over ``model`` (of
+        more than one rank) — one flat all-reduce per (axes, dtype).
+        (The FSDP-split leaves were reduce-scattered by their gather's
+        backward; the model-split ones are whole.)"""
+        from repro_torch.launch.mesh import axes_group
+
+        axes = self._axes()
+        todo: Dict[Tuple, list] = {}
+        for i, path in enumerate(self.specs):
+            split = self._split_axes(path)
+            over = tuple(a for a in ("pod", "data")
+                         if a in axes and a not in split)
+            if over:
+                todo.setdefault((over, grads[i].dtype), []).append(i)
+            if self.model_axis in axes and self.prefix + path in self.partial:
+                todo.setdefault(((self.model_axis,), grads[i].dtype),
+                                []).append(i)
+        for (over, _), idx in todo.items():
+            group = self.model_group if over == (self.model_axis,) else \
+                axes_group(self.mesh, over)
+            flat = comm.all_reduce_sum_(
+                torch.cat([grads[i].reshape(-1) for i in idx]), group)
+            start = 0
+            for i in idx:
+                n = grads[i].numel()
+                grads[i].copy_(flat[start:start + n].view_as(grads[i]))
+                start += n
+
+    def norm_counted(self) -> list:
+        """Per leaf (``leaves(self.local)`` order), whether this rank's
+        block counts in the mesh's gradient norm: split blocks by every
+        rank of their groups, a block replicated over an axis by the rank
+        at coordinate 0 of it — every element once over the mesh."""
+        axes = self._axes()
+        zero = {a: self.mesh.get_local_rank(a) == 0 for a in axes}
+        return [all(zero[a] for a in axes if a not in self._split_axes(p))
+                for p in self.specs]
+
+    def norm_groups(self) -> list:
+        """The groups the squared norm's partial sums are all-reduced over:
+        ``model`` and the data axes, those of more than one rank."""
+        axes = self._axes()
+        out = [self.model_group] if self.model_axis in axes else []
+        if any(a in axes for a in ("pod", "data")):
+            out.append(self.data_group())
+        return out
 
 
 @dataclasses.dataclass(eq=False)
@@ -405,6 +496,29 @@ class ShardedCache:
         return unflatten(self.local, out)
 
 
+def remat_tp(remat: bool, fn, *args, **kw):
+    """``fn(*args, **kw)``, recomputed in the backward pass when
+    ``remat``: every op again, collectives included (no early stop), so
+    every rank makes the same collective calls in the same order."""
+    if not remat:
+        return fn(*args, **kw)
+    from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
+
+    with set_checkpoint_early_stop(False):
+        return checkpoint(fn, *args, **kw, use_reentrant=False)
+
+
+class _ShareGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, parts):
+        ctx.parts = parts
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.parts, None
+
+
 @dataclasses.dataclass(eq=False)
 class LayerTP:
     """One layer's tensor-parallel view: its leaves' paths in ``params``
@@ -441,12 +555,51 @@ class LayerTP:
         return self.rank * (self.seq_len // self.size) if self.seq_split \
             else 0
 
-    def rows_in(self, x: torch.Tensor) -> torch.Tensor:
-        """Every row of the residual ``x`` (B, S/m, ...): all-gathered over
-        ``model`` under a split, else ``x``."""
+    def mark(self, sub: str) -> None:
+        """Marks the leaves of sublayer ``sub`` (e.g. ``attn``) held whole
+        over ``model`` as having each rank's partial gradient
+        (``ShardedParams.partial``)."""
+        pre = self.prefix + sub
+        for path in self.params.specs:
+            if (path == pre or path.startswith(pre + "/")) \
+                    and not self.params.sharded(path):
+                self.params.partial.add(self.params.prefix + path)
+
+    def rows_in(self, x: torch.Tensor, name: Optional[str] = None
+                ) -> torch.Tensor:
+        """Every row of the residual ``x`` (B, S/m, ...) as the input of
+        the sublayer that leaf ``name`` decides (e.g. ``attn/wq``):
+        all-gathered over ``model`` under a split, else ``x``.  Where the
+        rows are split or ``name`` is split over ``model`` the sublayer
+        computes on each rank's partial gradient: the gather's backward
+        reduce-scatters it, an unsplit ``x``'s all-reduces it, and the
+        sublayer's whole leaves are marked partial (:meth:`mark`).  A
+        sublayer of whole leaves on whole rows (``name`` None or whole, no
+        split) is the same on every rank, and nothing changes."""
+        if not self.seq_split and (name is None or not self.sharded(name)):
+            return x
+        if name is not None:
+            self.mark(name.split("/")[0])
+        if not self.seq_split:
+            return comm.partial_grads(x, self.group)
+        return comm.gather_partial(x, self.group, 1)
+
+    def share_grad(self, y: torch.Tensor) -> torch.Tensor:
+        """``y``, the same on every rank, leaving a sublayer that computes
+        on each rank's partial gradient: the backward hands each rank
+        1/``size`` of its whole gradient (no collective)."""
+        if self.size == 1 or not (torch.is_grad_enabled()
+                                  and y.requires_grad):
+            return y
+        return _ShareGrad.apply(y, self.size)
+
+    def rows_whole(self, x: torch.Tensor) -> torch.Tensor:
+        """Every row of the residual ``x`` for a use that is the same on
+        every rank (its gradient whole on each): the gather's backward
+        keeps the rank's rows."""
         if not self.seq_split:
             return x
-        return comm.all_gather_cat(x, self.group, 1)
+        return comm.gather_replicated(x, self.group, 1)
 
     def own_rows(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a whole-row ``x`` under a split."""
@@ -458,17 +611,19 @@ class LayerTP:
     def rows_out(self, name: str, y: torch.Tensor) -> torch.Tensor:
         """A sublayer's output in the residual's layout: the row-parallel
         partials of leaf ``name`` reduce-scattered over the rows under a
-        split, else all-reduced in place; a product by a whole leaf is
+        split (the backward all-gathers the rows' gradients), else
+        all-reduced (in place without grad); a product by a whole leaf is
         complete (its own rows kept under a split)."""
         if not self.sharded(name):
             return self.own_rows(y)
         if self.seq_split:
-            return comm.reduce_scatter(y, self.group, 1)
-        return comm.all_reduce_sum_(y, self.group)
+            return comm.scatter_sum(y, self.group, 1)
+        return comm.sum_replicated(y, self.group)
 
     def sum(self, y: torch.Tensor) -> torch.Tensor:
-        """Partials over ``model`` added in place (whole rows)."""
-        return comm.all_reduce_sum_(y, self.group)
+        """Partials over ``model`` added (whole rows; in place without
+        grad)."""
+        return comm.sum_replicated(y, self.group)
 
     def cache_split(self, name: str, dim: int) -> Tuple[int, int]:
         """(parts, index) of the split of cache leaf ``name``'s dim ``dim``

@@ -45,18 +45,36 @@ def adamw_init(params):
     }
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in leaves(tree)))
+def global_norm(tree, counted=None, groups=()) -> torch.Tensor:
+    """The L2 norm of every leaf of ``tree``.  On a mesh, of the tree whose
+    blocks the ranks hold: ``counted`` (a bool a leaf) names the blocks
+    this rank adds (``ShardedParams.norm_counted``: each element once over
+    the mesh), and the sum of squares is all-reduced over each of
+    ``groups`` before the root, so every rank clips by the same norm."""
+    from repro_torch import comm
+
+    flat = leaves(tree)
+    if counted is None:
+        counted = [True] * len(flat)
+    total = sum(torch.sum(torch.square(x.to(torch.float32)))
+                for x, c in zip(flat, counted) if c)
+    if not isinstance(total, torch.Tensor):     # this rank counts nothing
+        total = torch.zeros((), dtype=torch.float32, device=flat[0].device)
+    for group in groups:
+        total = comm.all_reduce_sum_(total.reshape(1), group)[0]
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
-def adamw_update(grads, opt_state, params, cfg: AdamWConfig, lr_t=None):
+def adamw_update(grads, opt_state, params, cfg: AdamWConfig, lr_t=None, *,
+                 counted=None, groups=()):
     """Returns (params, opt_state, metrics): params, master, mu and nu
     updated in place, a new ``count``; metrics ``grad_norm`` and ``lr`` as
-    0-d float32 tensors on the params' device."""
+    0-d float32 tensors on the params' device.  ``counted``/``groups``:
+    the global norm over a mesh (:func:`global_norm`); the rest is the
+    same on a rank's blocks."""
     count = opt_state["count"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, counted, groups)
     scale = (torch.clamp(cfg.grad_clip / (gnorm + 1e-12), max=1.0)
              if cfg.grad_clip else 1.0)
     lr = cfg.lr if lr_t is None else lr_t

@@ -12,10 +12,11 @@ nothing and are counted), at reduced size and at DiT-XL's width.
 * The ParaTAA record on registry-shaped meshes: ``chips``, the FSDP
   axes against the reference's ``resolve_spec``, all-reduce and
   all-gather bytes equal to the formula, the link tier of each group.
-* LM prefill and decode cells on a production mesh are rank 0's
-  tensor-parallel program (``ok``); train cells are written ``skipped``
-  with their ROADMAP item; one-card records say "one-card"; ``main --mesh
-  single`` and ``--mesh both`` write the production records.
+* LM prefill, decode and train cells and the DiT's train cell on a
+  production mesh are rank 0's tensor-parallel program (``ok``; a train
+  cell's collectives the train step's formula); one-card records say
+  "one-card"; ``main --mesh single`` and ``--mesh both`` write the
+  production records.
 * The LM backbones' product FLOPs summed over the ``model`` group equal
   the unsharded count, but for the products by leaves whose specs put
   nothing on ``model`` (the MoE router, mamba2's ``in_B``/``in_C`` and
@@ -203,9 +204,13 @@ def test_link_tiers_follow_eight_rank_nodes():
 
 
 def test_lm_and_train_cells_wait_on_production_meshes():
-    """LM prefill and decode cells are priced on fake pod and multi-pod
-    worlds (reduced widths, short shapes); train cells stay skipped with
-    TRAIN_MESH_ITEM; ``abstract_*(mesh=)`` give an LM's rank blocks."""
+    """LM prefill and decode cells, and the LM's and the DiT's train_4k
+    cells, are priced on fake pod and multi-pod worlds (reduced widths,
+    short LM shapes): ``ok``, rank 0's train step with its collectives
+    by the train formula (``backbone``/``dit.tp_train_collectives``);
+    ``abstract_*(mesh=)`` give an LM's rank blocks."""
+    from repro_torch.models import backbone as B
+
     for name, sizes, label in (("pod", dict(data_parallel=2,
                                              model_parallel=2), "single"),
                                ("multi-pod", dict(data_parallel=2,
@@ -224,11 +229,23 @@ def test_lm_and_train_cells_wait_on_production_meshes():
                 assert sum(rec["collective_by_link"].values()) == \
                     rec["collective_bytes_per_chip"]
                 assert "modeled, not measured" in rec["collective_model"]
-            rec = D.run_cell("qwen3-0.6b", "train_4k", mesh_label=label,
-                             mesh=mesh, verbose=False)
-            assert rec["status"] == "skipped"
-            assert S.TRAIN_MESH_ITEM in rec["reason"]
-            lm = get_arch("qwen3-0.6b").reduced()
+            lm = dataclasses.replace(get_arch("qwen3-0.6b").reduced(),
+                                     num_layers=2)
+            ditr = dataclasses.replace(get_arch("dit-xl").reduced(),
+                                       num_layers=2)
+            train = S.ShapeConfig("train_256", 256, 16, "train")
+            for arch, cfg, want in (
+                    ("qwen3-0.6b", lm, B.tp_train_collectives(
+                        lm, 2, 2, 256, lm.train_grad_accum)),
+                    ("dit-xl", ditr, dit.tp_train_collectives(ditr, 2, 2))):
+                rec = D.run_cell(arch, train, cfg=cfg,
+                                 mesh_label=label, mesh=mesh, verbose=False)
+                assert rec["status"] == "ok" and rec["chips"] == chips
+                assert rec["fits_hbm"] and rec["flops_per_chip"] > 0
+                assert rec["collective_counts"] == {
+                    k: v for k, v in want.items() if v}, (arch, rec)
+                assert sum(rec["collective_by_link"].values()) == \
+                    rec["collective_bytes_per_chip"]
             params, _ = S.abstract_model_state(lm, with_opt=False,
                                                mesh=mesh)
             assert isinstance(params, ShardedParams)
@@ -236,21 +253,23 @@ def test_lm_and_train_cells_wait_on_production_meshes():
             cache = S.abstract_cache(lm, S.ShapeConfig("t", 16, 4,
                                                        "decode"), mesh=mesh)
             assert cache["k"].shape[3] == 1 and cache["k"].device == META
-    rec = D.run_cell("dit-xl", "train_4k", mesh_label="multi",
-                     verbose=False)
-    assert rec["status"] == "skipped" and S.TRAIN_MESH_ITEM in rec["reason"]
+    with pytest.raises(ValueError, match="needs its DeviceMesh"):
+        D.run_cell("dit-xl", "train_4k", mesh_label="multi", verbose=False)
     rec = D._error("dit-xl", "parataa_serve", ValueError("x"))
     assert rec["mesh"] == "one-card"
 
 
 def test_main_writes_the_production_records(tmp_path, monkeypatch):
     """``--all --mesh single``: the ParaTAA record on 256 ranks at full
-    width and every LM prefill/decode cell that its arch supports (at
-    reduced widths and 256-token prefills here: the full-width ``--all``
-    takes minutes) ``ok``,
-    the train cells skipped; the report renders them.  ``--parataa
-    --mesh both`` starts one process a production mesh (run in this one
-    here, in turn: each its own fake world)."""
+    width (2 of DiT-XL's layers), dit-xl's train_4k cell the same on a
+    batch of 64, and
+    every LM prefill/decode/train cell that its arch supports (at reduced
+    widths and depths, 256-token prefills and 256-token batches of 64
+    here: the full-width ``--all`` takes minutes) ``ok``, every other cell skipped
+    as its arch does not support it; ``--arch``/``--shape`` take lists;
+    the report renders them.  ``--parataa --mesh both`` starts one
+    process a production mesh (run in this one here, in turn: each its
+    own fake world)."""
     import subprocess
     import sys
 
@@ -272,13 +291,19 @@ def test_main_writes_the_production_records(tmp_path, monkeypatch):
     from repro_torch.roofline import report
 
     full, shapes = D.get_arch, D.get_shape
-    monkeypatch.setattr(D, "get_arch", lambda name: full(name).reduced()
-                        if name != "dit-xl" else full(name))
-    # the prefills at 256 tokens (their cost on meta grows with the
-    # tokens; which arch supports which shape does not)
+
+    def arch(name):             # 2 layers (a hybrid: one period)
+        cfg = full(name) if name == "dit-xl" else full(name).reduced()
+        return dataclasses.replace(cfg, num_layers=cfg.rglru_ratio
+                                   if cfg.is_hybrid else 2)
+    monkeypatch.setattr(D, "get_arch", arch)
+    # the prefills and train batches at 256 tokens, 64 rows a train batch
+    # (their cost on meta grows with both; which arch supports which
+    # shape does not)
     monkeypatch.setattr(D, "get_shape", lambda name: dataclasses.replace(
         shapes(name), seq_len=256) if shapes(name).kind == "prefill"
-        else shapes(name))
+        else dataclasses.replace(shapes(name), seq_len=256, global_batch=64)
+        if shapes(name).kind == "train" else shapes(name))
     D.main(["--all", "--mesh", "single", "--out", str(tmp_path)])
     recs = [json.loads(p.read_text()) for p in tmp_path.glob("*.json")]
     assert all(r["mesh"] == "single" for r in recs)
@@ -289,26 +314,27 @@ def test_main_writes_the_production_records(tmp_path, monkeypatch):
     assert par[0]["collective_breakdown"]["all-reduce"] > 0
     assert par[0]["collective_by_link"]["network"] > 0
     want = {(a, s) for a in ASSIGNED for s, shape in SHAPES.items()
-            if shape.kind != "train"
-            and full(a).supports_shape(shape)[0]}
+            if full(a).supports_shape(shape)[0]} | {("dit-xl", "train_4k")}
     assert {(r["arch"], r["shape"]) for r in ok if r not in par} == want
+    assert any(SHAPES[s].kind == "train" for a, s in want if a != "dit-xl")
     assert all(r["chips"] == 256 for r in ok)
-    assert all(r["status"] == "skipped" for r in recs if r not in ok)
-    # what is skipped is a shape its arch does not support, or a train
-    # cell (or the DiT's, whose mesh form is the ParaTAA record) waiting
-    # on TRAIN_MESH_ITEM: never a supported LM prefill or decode cell
+    # what is skipped is a shape its arch does not support: never a
+    # supported cell
     for r in recs:
         if r not in ok:
-            shape = SHAPES[r["shape"]]
-            waits = S.TRAIN_MESH_ITEM in r["reason"]
-            assert waits != (not full(r["arch"]).supports_shape(shape)[0]), r
-            assert not waits or shape.kind == "train" \
-                or full(r["arch"]).is_diffusion, r
-    assert any(S.TRAIN_MESH_ITEM in r["reason"] for r in recs
-               if r not in ok)
+            assert r["status"] == "skipped", r
+            assert not full(r["arch"]).supports_shape(SHAPES[r["shape"]])[0]
     table = report.render(str(tmp_path), "single")
     assert "256 H100s" in table and "| dit-xl | parataa_serve |" in table
     assert "| qwen3-0.6b | decode_32k |" in table
+    assert "| dit-xl | train_4k |" in table
+    from types import SimpleNamespace
+
+    cells = D._cells(SimpleNamespace(all=False, parataa=False,
+                                     arch="qwen3-0.6b,dit-xl",
+                                     shape="decode_32k,train_4k"))
+    assert cells == [("qwen3-0.6b", "decode_32k"), ("qwen3-0.6b", "train_4k"),
+                     ("dit-xl", "decode_32k"), ("dit-xl", "train_4k")]
 
     both = tmp_path / "both"
     monkeypatch.setattr(subprocess, "Popen", InProcess)

@@ -503,7 +503,8 @@ def test_tp_chaos_drain_reshards_onto_the_survivors(tp_runs):
 def test_tp_path_at_one_rank_is_the_host_path_bit_for_bit(tmp_path):
     """A world of one gloo rank in this process: ``dit_apply`` on the
     (1, 1) mesh's ShardedParams issues every collective and returns the
-    host path's bits; the engine's x0 too."""
+    host path's bits; under grad (with remat) its gradients of every
+    block are the host path's bits too; the engine's x0 too."""
     import torch
     import torch.distributed as dist
 
@@ -533,12 +534,18 @@ def test_tp_path_at_one_rank_is_the_host_path_bit_for_bit(tmp_path):
             assert {k: comm.counts[k] for k in ("all-gather", "all-reduce")
                     } == dit_counts(cfg.num_layers, 1)
             assert torch.equal(got, dit.dit_apply(params, cfg, x, t, y))
-        params_grad = {k: v for k, v in sharded.local.items()}
-        params_grad["in_proj"] = params_grad["in_proj"].clone() \
-            .requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="forward-only"):
-            dit.dit_apply(type(sharded)(params_grad, sharded.specs,
-                                        sharded.mesh), cfg, x, t, y)
+        from repro_torch.tree import leaves
+
+        grads = []
+        for p in (params, sharded):
+            flat = leaves(p.local if p is sharded else p)
+            for leaf in flat:
+                leaf.requires_grad_(True)
+            out = dit.dit_apply(p, cfg, x, t, y, remat=True)
+            grads.append(torch.autograd.grad(out.square().sum(), flat))
+            for leaf in flat:
+                leaf.requires_grad_(False)
+        assert all(torch.equal(a, b) for a, b in zip(*grads))
         reqs = [SampleRequest(label=i, seed=50 + i) for i in range(3)]
 
         def run(placement):

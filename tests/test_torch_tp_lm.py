@@ -554,8 +554,8 @@ def test_tp_wrapper_engine_matches_host(lm_runs, name):
 def test_tp_lm_at_one_rank_is_the_host_path_and_forward_only(tmp_path):
     """A world of one gloo rank in this process: the (1, 1) mesh's
     ``ShardedParams``/``ShardedCache`` give the host path's bits for
-    prefill, decode and ``forward``; a tree under grad raises, naming the
-    ROADMAP item of the tensor-parallel backward."""
+    prefill, decode and ``forward``; under grad ``forward`` (remat on)
+    gives the host path's gradients of every block, bit for bit."""
     import torch
     import torch.distributed as dist
 
@@ -587,11 +587,18 @@ def test_tp_lm_at_one_rank_is_the_host_path_and_forward_only(tmp_path):
             assert torch.equal(p_log, want[0])
             assert all(torch.equal(a, b) for a, b in zip(d_log, want[1]))
             assert torch.equal(bb.forward(tp, cfg, x)[0], want[2])
-        grad = dict(tp.local, embed=tp.local["embed"].clone()
-                    .requires_grad_(True))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3, "
-                           "step 2"):
-            bb.forward(dataclasses.replace(tp, local=grad), cfg, x)
+        from repro_torch.tree import leaves
+
+        grads = []
+        for p in (params, tp):
+            flat = leaves(p.local if p is tp else p)
+            for leaf in flat:
+                leaf.requires_grad_(True)
+            logits, _ = bb.forward(p, cfg, x)
+            grads.append(torch.autograd.grad(logits.square().sum(), flat))
+            for leaf in flat:
+                leaf.requires_grad_(False)
+        assert all(torch.equal(a, b) for a, b in zip(*grads))
     finally:
         dist.destroy_process_group()
 
