@@ -293,7 +293,9 @@ def wrapper_apply(params, cfg: ArchConfig, latents, t, *,
     recomputes each layer in the backward pass.  ``params`` may be a
     rank's ``ShardedParams`` of :func:`wrapper_defs` on a mesh: the
     projections' data-axis splits gathered, the backbone tensor-parallel
-    (``models.backbone``)."""
+    (``models.backbone``); no train step takes the wrapper on a mesh
+    (``launch.steps.partial_leaves`` names the DiT's and the LMs'
+    leaves)."""
     from repro_torch.models.backbone import (default_positions, seq_split,
                                              trunk)
     from repro_torch.models.shardctx import LayerTP
@@ -316,10 +318,7 @@ def wrapper_apply(params, cfg: ArchConfig, latents, t, *,
     # split over model where the arch asks (backbone.seq_split)
     bb = tp.sub("backbone")
     split = seq_split(cfg, bb, "train", n)
-    rows = LayerTP(tp, "", {}, split, n)
-    if split:                       # each rank's rows: partial gradients
-        for name in ("in_proj", "t_mlp1", "t_mlp2"):
-            rows.mark(name)
+    rows = LayerTP(bb, "", {}, split, n)
     h, _, _ = trunk(bb, cfg, rows.own_rows(x), pos, mode="train",
                     remat=remat)
     return rows.rows_whole(h) @ top["out_proj"]

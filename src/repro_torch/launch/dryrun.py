@@ -364,8 +364,7 @@ def _layer_cost(cfg, shape: ShapeConfig, device=META, mesh=None):
 def _loss_cost(cfg, shape: ShapeConfig, device=META, mesh=None):
     """The loss and the grads of every param at one microbatch — as the
     train step takes them — for ``cfg`` as given; on a mesh, rank 0's
-    rows and blocks.  Returns (Cost, the paths of the leaves whose
-    gradients the forward marked partial over ``model``)."""
+    rows and blocks."""
     ga = cfg.train_grad_accum
     local = _local_shape(shape, mesh, ga)
     mb = dataclasses.replace(shape, global_batch=local.global_batch // ga)
@@ -381,14 +380,14 @@ def _loss_cost(cfg, shape: ShapeConfig, device=META, mesh=None):
             materialize_grads=True))
     finally:
         _requires_grad(tree, False)
-    return cost, getattr(params, "partial", set())
+    return cost
 
 
-def _update_cost(cfg, device=META, mesh=None, partial=()):
+def _update_cost(cfg, shape: ShapeConfig, device=META, mesh=None):
     """(AdamW update, float32 grad accumulation over the microbatches),
     each over the whole param tree — on a mesh over rank 0's blocks, the
-    update with the gradient sync (the leaves ``partial`` over model among
-    them) and the mesh's global norm."""
+    update with the gradient sync (``steps.partial_leaves`` of the
+    shape's tokens) and the mesh's global norm."""
     params, opt = S.abstract_model_state(cfg, device=device, mesh=mesh)
     tree = params.local if mesh is not None else params
     grads = [torch.empty(p.shape, dtype=p.dtype, device=device)
@@ -400,10 +399,10 @@ def _update_cost(cfg, device=META, mesh=None, partial=()):
     if mesh is None:
         opt_cost = _counted(lambda: adamw_update(f32, opt, params, ocfg, lr))
     else:
-        params.partial.update(partial)
+        partial = S.partial_leaves(cfg, params, shape.seq_len)
 
         def update():
-            params.sync_grads(f32)
+            params.sync_grads(f32, partial)
             adamw_update(f32, opt, tree, ocfg, lr,
                          counted=params.norm_counted(),
                          groups=params.norm_groups())
@@ -430,9 +429,8 @@ def cell_cost(cfg, shape: ShapeConfig, device=META, mesh=None):
     unit, n_units = _layer_cost(cfg, shape, device, mesh)
     _, _, _, one = _scan_unit(cfg)
     if shape.kind == "train":
-        loss, partial = _loss_cost(one, shape, device, mesh)
-        loss = loss - unit
-        opt, acc = _update_cost(cfg, device, mesh, partial)
+        loss = _loss_cost(one, shape, device, mesh) - unit
+        opt, acc = _update_cost(cfg, shape, device, mesh)
         ga = cfg.train_grad_accum
         return opt + acc + (loss + unit * n_units) * ga, n_units
     fn, args = _program(one, shape, device, mesh=mesh)
@@ -676,8 +674,9 @@ def _error(arch, shape, e, mesh_label: str = "one-card") -> dict:
 
 def _cells(args) -> list:
     if args.all:
-        return [(a, s) for a in ASSIGNED for s in SHAPES] + \
-            [("dit-xl", "train_4k")]
+        shapes = args.shape.split(",") if args.shape else list(SHAPES)
+        return [(a, s) for a in ASSIGNED for s in shapes] + \
+            [("dit-xl", "train_4k")] * ("train_4k" in shapes)
     if args.parataa:
         return []
     if not (args.arch and args.shape):
@@ -727,7 +726,8 @@ def main(argv=None):
     p.add_argument("--arch", default=None,
                    help="an arch, or several joined by commas")
     p.add_argument("--shape", default=None,
-                   help="a shape, or several joined by commas")
+                   help="a shape, or several joined by commas (with "
+                        "--all: only those shapes)")
     p.add_argument("--all", action="store_true",
                    help="every assigned cell, dit-xl x train_4k and the "
                         "ParaTAA cell")

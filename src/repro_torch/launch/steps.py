@@ -105,10 +105,19 @@ def make_grads_fn(cfg: ArchConfig, grad_accum: int = 1):
                 acc.mul_(inv)
         if tp is None:
             return loss, unflatten(params, grads)
-        tp.sync_grads(grads)
+        tp.sync_grads(grads, partial_leaves(
+            cfg, tp, 0 if cfg.is_diffusion else batch["inputs"].shape[1]))
         return loss, unflatten(tp.local, grads)
 
     return grads_of
+
+
+def partial_leaves(cfg: ArchConfig, tp: ShardedParams, s: int) -> set:
+    """The paths of a rank's blocks whose gradients are partial over
+    ``model`` in a train step on ``s`` tokens: none of the DiT's (its
+    whole leaves see whole inputs: ``dit.tp_train_collectives``), an LM's
+    ``backbone.partial_leaves``."""
+    return set() if cfg.is_diffusion else backbone.partial_leaves(cfg, tp, s)
 
 
 def accumulate_grads(sums, grads):

@@ -39,8 +39,9 @@ the rank that owns slot ``index % cap`` writes the new token.  In train
 mode the same code runs under grad: the heads form's input all-reduces
 its partial gradients (reduce-scatters them under ``seq_parallel``) and
 its whole leaves (``q_norm``/``k_norm``, and KV leaves that do not split)
-are marked partial; under a context-parallel split every leaf is (each
-rank's rows), and the gathered keys' backward reduce-scatters.
+get partial gradients; under a context-parallel split every leaf does
+(each rank's rows), and the gathered keys' backward reduce-scatters
+(``backbone.partial_leaves`` names these leaves for the gradient sync).
 """
 from __future__ import annotations
 
@@ -365,7 +366,6 @@ def _attention_tp(params, cfg: ArchConfig, x, positions, *, window: int,
                                positions.narrow(-1, tp.row0, rows))
         if tp.seq_split:
             # each rank's queries read every key: partial gradients
-            tp.mark("attn")
             kv = comm.gather_partial(torch.cat([k, v], dim=-1), tp.group, 1)
             k, v = kv.chunk(2, dim=-1)
         ctx = _core(q, _repeat_kv(k, g), _repeat_kv(v, g),

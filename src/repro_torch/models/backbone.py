@@ -174,10 +174,7 @@ def _apply_layer(cfg: ArchConfig, kind: str, params, h, positions, *,
     """-> (h, MoE aux loss or None); the cache is written in place.
     ``tp``: the layer's tensor-parallel view (``params`` its blocks,
     ``h`` the residual's layout; under a row split the norms see each
-    rank's rows, so their gradients are partial)."""
-    if tp is not None and tp.seq_split:
-        for name in ("norm", "norm1", "norm2"):
-            tp.mark(name)
+    rank's rows, so their gradients are partial: :func:`partial_leaves`)."""
     if kind == "ssm":
         y, _ = mamba_apply(params["mamba"], cfg,
                            rmsnorm(params["norm"], h, cfg.norm_eps),
@@ -271,6 +268,39 @@ def seq_split(cfg: ArchConfig, tp, mode: str, s: int) -> bool:
     return (tp is not None and mode != "decode"
             and (cfg.tp_strategy == "hidden" or cfg.seq_parallel)
             and s % tp.model_size == 0)
+
+
+#: a layer's sublayers and the leaf whose split over ``model`` makes the
+#: sublayer take its input through ``LayerTP.rows_in``'s partial form
+SUBLAYER_SPLIT_LEAF = {"attn": "wq", "mlp": "wo", "mamba": "in_x",
+                       "rec": "w_o", "moe": "we_gate"}
+
+
+def partial_leaves(cfg: ArchConfig, tp: ShardedParams, s: int) -> set:
+    """The paths of the leaves held whole over ``model`` > 1 whose
+    gradients are each rank's partial in a train step on ``s`` tokens
+    (``ShardedParams.sync_grads`` all-reduces them over ``model``): under
+    :func:`seq_split` every whole leaf (each rank computes on its own rows,
+    and a context-parallel attention's keys come gathered from every
+    rank's); else the whole leaves of each sublayer whose
+    :data:`SUBLAYER_SPLIT_LEAF` is split (its input's gradient is
+    all-reduced after the sublayer: attention's ``q_norm``/``k_norm`` and
+    KV leaves where KV does not divide, mamba2's B/C projections and
+    norm, the MoE router and a whole shared MLP)."""
+    if tp.model_size == 1:
+        return set()
+    split = seq_split(cfg, tp, "train", s)
+    out = set()
+    for path in tp.specs:
+        if tp.sharded(path):
+            continue
+        parts = path.split("/")
+        if split or any(
+                p in SUBLAYER_SPLIT_LEAF and tp.sharded(
+                    "/".join(parts[:i + 1] + [SUBLAYER_SPLIT_LEAF[p]]))
+                for i, p in enumerate(parts[:-1])):
+            out.add(path)
+    return out
 
 
 def tp_collectives(cfg: ArchConfig, mode: str, model: int, data: int,
@@ -535,8 +565,6 @@ def _trunk_tp(tp: ShardedParams, cfg: ArchConfig, h, positions, *,
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     norm = tp.gather_tree("final_norm/", tree["final_norm"])
-    if split:
-        _rows(tp, split, s).mark("final_norm")
     return rmsnorm(norm, h, cfg.norm_eps), cache, aux
 
 
@@ -582,8 +610,6 @@ def _embed_tp(tp: ShardedParams, cfg: ArchConfig, top: dict, inputs,
         return rows.own_rows(embed(top, cfg, inputs))
     w = top["embed"]
     if not tp.sharded("embed"):
-        if split:                   # each rank's rows: partial gradients
-            rows.mark("embed")
         return rows.own_rows(embed(top, cfg, inputs))
     v = w.shape[0]
     ids = inputs.long() - tp.model_rank * v
@@ -611,8 +637,6 @@ def _unembed_tp(tp: ShardedParams, cfg: ArchConfig, top: dict, h,
         logits = tp.model_cat(_head(cfg), rows.rows_in(h, _head(cfg))
                               @ head_weight(top, cfg), -1)
     else:                       # a whole head: each rank's rows' logits
-        if split:
-            rows.mark(_head(cfg))
         logits = rows.rows_whole(h @ head_weight(top, cfg))
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
@@ -771,9 +795,7 @@ def _lm_loss_tp(tp: ShardedParams, cfg: ArchConfig, batch):
                                                     inputs.device),
                       mode="train")
     w, softcap = head_weight(top, cfg), cfg.logit_softcap
-    if not tp.sharded(_head(cfg)):
-        if split:                   # each rank's rows: partial gradients
-            rows.mark(_head(cfg))
+    if not tp.sharded(_head(cfg)):   # each rank's rows
         nll = _xent_sum(h, w, rows.own_rows(labels), softcap)
         if split:
             nll = comm.sum_replicated(nll, tp.model_group)

@@ -27,12 +27,13 @@ in the layer's one all-reduce (the reference's ``psum``; a reduce-scatter
 over the rows under a sequence split), and in ``train`` mode the aux loss
 is averaged over the data axes.  Under grad the layer computes on each
 rank's partial gradients: its input's backward all-reduces them, the
-whole router is marked partial, and the aux loss — the same on every
-rank — hands each rank 1/model of its gradient (as a whole shared MLP's
-output does beside split experts).  The LM backbones pass their layer's
-``tp``; under an ambient mesh whose ``model`` axis has more than one rank
-and divides the padded expert count, ``moe_apply`` builds it from a whole
-tree (:func:`expert_parallel`, the reference's shard_map branch).
+whole router's gradient is partial (``backbone.partial_leaves``), and
+the aux loss — the same on every rank — hands each rank 1/model of its
+gradient (as a whole shared MLP's output does beside split experts).
+The LM backbones pass their layer's ``tp``; under an ambient mesh whose
+``model`` axis has more than one rank and divides the padded expert
+count, ``moe_apply`` builds it from a whole tree
+(:func:`expert_parallel`, the reference's shard_map branch).
 """
 from __future__ import annotations
 

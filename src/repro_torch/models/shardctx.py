@@ -47,10 +47,10 @@ and a collective is an explicit call.  What carries over:
     downstream gradient is (``comm``'s table).  A sublayer whose leaves
     are split over ``model`` (or whose rows come gathered from a split)
     computes on each rank's partial gradient, so the leaves it holds
-    whole get partial gradients too (:meth:`LayerTP.rows_in` marks them,
-    ``ShardedParams.partial``); :meth:`ShardedParams.sync_grads`
-    all-reduces those over ``model`` and the leaves replicated over the
-    data axes over data, and :meth:`ShardedParams.norm_counted` says which
+    whole get partial gradients too (``backbone.partial_leaves`` names
+    them from the specs); :meth:`ShardedParams.sync_grads` all-reduces
+    those over ``model`` and the leaves replicated over the data axes over
+    data, and :meth:`ShardedParams.norm_counted` says which
     blocks a rank counts in the mesh's global gradient norm (each element
     once).
 """
@@ -215,10 +215,6 @@ class ShardedParams:
     model_axis: the tensor-parallel axis; every other sharded axis is
                 FSDP, gathered before use
     groups:     a spec entry's axes -> their process group
-    partial:    paths (from the root carrier) of the leaves held whole over
-                ``model`` whose gradients are each rank's partial (marked
-                by the forward, :meth:`LayerTP.rows_in`)
-    prefix:     this carrier's path from the root (:meth:`sub`)
     """
     local: object
     specs: Dict[str, Tuple]
@@ -226,8 +222,6 @@ class ShardedParams:
     model_axis: str = "model"
     groups: Dict[Tuple[str, ...], object] = dataclasses.field(
         default_factory=dict)
-    partial: set = dataclasses.field(default_factory=set)
-    prefix: str = ""
 
     @classmethod
     def build(cls, params, defs, mesh, model_axis: str = "model",
@@ -266,7 +260,7 @@ class ShardedParams:
         ``key/`` prefix), on the same mesh and groups."""
         pre = f"{key}/"
         return dataclasses.replace(
-            self, local=self.local[key], prefix=self.prefix + pre,
+            self, local=self.local[key],
             specs={p[len(pre):]: e for p, e in self.specs.items()
                    if p.startswith(pre)})
 
@@ -392,12 +386,14 @@ class ShardedParams:
     def _split_axes(self, path: str) -> set:
         return {a for e in self.specs[path] for a in entry_axes(e)}
 
-    def sync_grads(self, grads) -> None:
+    def sync_grads(self, grads, partial=()) -> None:
         """Completes a rank's gradients of its blocks (``grads`` in
         ``leaves(self.local)`` order), in place: the leaves replicated over
         data axes of more than one rank all-reduced over those axes, and
-        the leaves marked :attr:`partial` all-reduced over ``model`` (of
-        more than one rank) — one flat all-reduce per (axes, dtype).
+        the leaves whose paths are in ``partial`` (held whole over
+        ``model``, each rank's gradient a partial:
+        ``backbone.partial_leaves``) all-reduced over ``model`` (of more
+        than one rank) — one flat all-reduce per (axes, dtype).
         (The FSDP-split leaves were reduce-scattered by their gather's
         backward; the model-split ones are whole.)"""
         from repro_torch.launch.mesh import axes_group
@@ -410,7 +406,7 @@ class ShardedParams:
                          if a in axes and a not in split)
             if over:
                 todo.setdefault((over, grads[i].dtype), []).append(i)
-            if self.model_axis in axes and self.prefix + path in self.partial:
+            if self.model_axis in axes and path in partial:
                 todo.setdefault(((self.model_axis,), grads[i].dtype),
                                 []).append(i)
         for (over, _), idx in todo.items():
@@ -555,16 +551,6 @@ class LayerTP:
         return self.rank * (self.seq_len // self.size) if self.seq_split \
             else 0
 
-    def mark(self, sub: str) -> None:
-        """Marks the leaves of sublayer ``sub`` (e.g. ``attn``) held whole
-        over ``model`` as having each rank's partial gradient
-        (``ShardedParams.partial``)."""
-        pre = self.prefix + sub
-        for path in self.params.specs:
-            if (path == pre or path.startswith(pre + "/")) \
-                    and not self.params.sharded(path):
-                self.params.partial.add(self.params.prefix + path)
-
     def rows_in(self, x: torch.Tensor, name: Optional[str] = None
                 ) -> torch.Tensor:
         """Every row of the residual ``x`` (B, S/m, ...) as the input of
@@ -572,14 +558,13 @@ class LayerTP:
         all-gathered over ``model`` under a split, else ``x``.  Where the
         rows are split or ``name`` is split over ``model`` the sublayer
         computes on each rank's partial gradient: the gather's backward
-        reduce-scatters it, an unsplit ``x``'s all-reduces it, and the
-        sublayer's whole leaves are marked partial (:meth:`mark`).  A
-        sublayer of whole leaves on whole rows (``name`` None or whole, no
-        split) is the same on every rank, and nothing changes."""
+        reduce-scatters it, an unsplit ``x``'s all-reduces it (the
+        sublayer's whole leaves get partial gradients:
+        ``backbone.partial_leaves``).  A sublayer of whole leaves on whole
+        rows (``name`` None or whole, no split) is the same on every rank,
+        and nothing changes."""
         if not self.seq_split and (name is None or not self.sharded(name)):
             return x
-        if name is not None:
-            self.mark(name.split("/")[0])
         if not self.seq_split:
             return comm.partial_grads(x, self.group)
         return comm.gather_partial(x, self.group, 1)

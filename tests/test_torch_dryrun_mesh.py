@@ -24,6 +24,9 @@ nothing and are counted), at reduced size and at DiT-XL's width.
   not divide); a rank's parameter and cache bytes are the full tree's
   over the blocks of the reference's ``resolve_spec`` and
   ``_cache_spec_for``.
+* ``backbone.partial_leaves``, the leaves held whole over ``model``
+  whose train-step gradients are each rank's partial, by arch, rows and
+  model size.
 """
 from __future__ import annotations
 
@@ -459,3 +462,52 @@ def test_lm_rank_param_and_cache_bytes_are_the_reference_blocks(name,
                     spec = tuple(jcache_spec(key, w.shape, grid))
                 assert cache.specs[key] == spec, (arch, key)
                 assert leaf.numel() * blocks(spec) == w.numel(), (arch, key)
+
+
+_ATTN_QKV = ["layers/attn/" + k for k in ("wq", "wk", "wv", "wo")]
+_MAMBA_BC = ["layers/mamba/" + k for k in ("conv_B", "conv_C", "in_B",
+                                           "in_C", "norm/scale")]
+
+
+@pytest.mark.parametrize("arch,model,s,want", [
+    # heads: the whole leaves of the split attention
+    ("qwen3-0.6b", 2, 16, ["layers/attn/k_norm/scale",
+                           "layers/attn/q_norm/scale"]),
+    # seq_parallel: every whole leaf sees the rank's rows
+    ("qwen2-72b", 2, 16, ["final_norm/scale", "layers/norm1/scale",
+                          "layers/norm2/scale"]),
+    # rows the model axis does not divide: no split, and no whole leaf
+    # beside a split one
+    ("qwen2-72b", 2, 15, []),
+    # hidden: context-parallel attention, whole weights on the rank's rows
+    ("qwen2-vl-2b", 2, 16, ["final_norm/scale", "layers/attn/bk",
+                            "layers/attn/bq", "layers/attn/bv",
+                            "layers/norm1/scale", "layers/norm2/scale"]
+     + _ATTN_QKV),
+    # mamba2: B/C projections, their convolutions and the gated norm
+    ("mamba2-1.3b", 2, 15, _MAMBA_BC),
+    ("mamba2-1.3b", 2, 16, _MAMBA_BC + ["final_norm/scale",
+                                        "layers/norm/scale"]),
+    # the MoE router beside the split experts
+    ("qwen2-moe-a2.7b", 2, 16, ["layers/moe/router"]),
+    # every leaf of a sublayer split, nothing beside it
+    ("granite-8b", 2, 16, []),
+    # one model rank: nothing is partial
+    ("qwen2-vl-2b", 1, 16, []),
+], ids=lambda v: str(v) if not isinstance(v, list) else f"{len(v)}")
+def test_partial_leaves_are_the_whole_leaves_beside_a_split(arch, model, s,
+                                                           want):
+    """``backbone.partial_leaves`` (the whole leaves the gradient sync
+    all-reduces over ``model``) at reduced widths on a fake (1, model)
+    mesh: under a row split every leaf held whole over ``model``; else
+    the whole leaves of each sublayer whose leaves split (the gradient
+    parity of the train step on gloo ranks holds the rule itself:
+    ``tests/test_torch_tp_train.py``)."""
+    from repro_torch.models import backbone as B
+
+    cfg = get_arch(arch).reduced()
+    with fake_mesh("debug", data_parallel=1, model_parallel=model) as mesh:
+        params, _ = S.abstract_model_state(cfg, with_opt=False, mesh=mesh)
+        assert B.partial_leaves(cfg, params, s) == set(want)
+        assert S.partial_leaves(get_arch("dit-xl").reduced(), params,
+                                s) == set()

@@ -7,6 +7,10 @@ from pathlib import Path
 
 import pytest
 
+from tests.test_torch_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
 
 

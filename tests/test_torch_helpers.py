@@ -8,11 +8,29 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.diffusion.schedules import make_schedule
 
 CPU = torch.device("cpu")
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for a test that runs the port alone, restored
+    after it.  The suite's parallel workers share the host's cores, and a
+    torch thread a core in every worker oversubscribes them many times
+    over: spinning threads then wait on descheduled ones at every
+    parallel op.  Tests that also run the JAX package keep the default
+    (the thread count a process starts its XLA client with moves the
+    reference's float sums)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def _tol(dtype):

@@ -42,6 +42,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from tests.test_torch_helpers import one_torch_thread  # noqa: F401
 from tests.test_torch_spawn import _init, _main, spawn
 from tests.test_torch_tp_lm import _flat, _perturb, _tokens, _tree
 
@@ -574,6 +575,7 @@ def test_tp_train_step_matches_the_reference_gspmd_step(train_runs, name):
     assert _ok_params(errs), {k: e for k, e in errs.items() if e >= 1e-5}
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 def test_tp_train_step_at_one_rank_is_the_host_step(tmp_path):
     """A world of one gloo rank in this process, mesh (1, 1): the DiT's and
     qwen3's TP train step (2 steps, grad_accum 2) give the host step's

@@ -29,6 +29,7 @@ from repro_torch.launch import train as ttrain
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, \
     lr_schedule
 from repro_torch.tree import flatten_with_paths, leaves
+from tests.test_torch_helpers import one_torch_thread  # noqa: F401
 from tests.test_torch_helpers import (CPU, dit_param_trees, normal, rel_err,
                                       to_np, torch_cfg)
 from tests.test_torch_train_driver import _train_argv
@@ -291,6 +292,7 @@ def test_train_step_refuses_a_ragged_split():
         step(pt, adamw_init(pt), _torch_batch(pipe.batch(0, 4)), 0)
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 def test_parataa_serve_step_matches_sequential():
     from repro_torch.core import ParaTAAConfig, ddim_coeffs
     from repro_torch.sampling import sequential_sample
@@ -314,6 +316,7 @@ def test_parataa_serve_step_matches_sequential():
 # --- drivers (the rest: tests/test_torch_train_driver.py) ----------------------
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 def test_train_driver_restart_continues(tmp_path):
     ck = tmp_path / "ck"
     first = ttrain.run(_train_argv(ck, 6, 3))

@@ -9,7 +9,10 @@ import torch
 
 from repro_torch.launch import steps as TS
 from repro_torch.launch import train as ttrain
+from tests.test_torch_helpers import one_torch_thread  # noqa: F401
 from tests.test_torch_helpers import rel_err
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _train_argv(ck, steps, every, batch=8):

@@ -2,6 +2,11 @@
 DiffusionWrapper trained a few steps, then ParaTAA against sequential
 (split from ``tests/test_torch_wrapper.py`` to spread the test run's files
 over its workers)."""
+import pytest
+
+from tests.test_torch_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def test_torch_backbone_denoiser_example_runs_on_the_cpu():
